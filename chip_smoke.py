@@ -7,21 +7,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. ``card``      the card (nvidia-smi name and power limit), torch and CUDA.
 2. ``build``     builds the hand-written kernels from ``src/repro_torch/
-                 kernels/csrc`` with nvcc, and times the build.
-3. ``parity``    each kernel against its plain PyTorch version on the card:
-                 w4i, w4l, w3ai; n in {8, 16, 32}; every valid level count;
-                 B = 64 blocks uniform in [-50, 50].  Forward within
-                 rtol=1e-5, atol=2e-3 (tests/test_kernels.py); inverse and
-                 round trip within rtol=1e-5, atol=1e-4 * 50
+                 kernels/csrc`` with nvcc, one nvcc per source, all started
+                 together, and times the build.
+3. ``parity``    each kernel against its plain PyTorch version on the card.
+                 Wavelets: w4i, w4l, w3ai; n in {8, 16, 32}; every valid
+                 level count; B = 64 blocks uniform in [-50, 50].  Forward
+                 within rtol=1e-5, atol=2e-3 (tests/test_kernels.py); inverse
+                 and round trip within rtol=1e-5, atol=1e-4 * 50
                  (tests/test_kernels.py), except w4i at 3 levels, held to a
                  fixed atol=3e-2: its boundary extrapolation makes
                  coefficients of ~4e3, whose rounding the synthesis
                  amplifies, so over 64 blocks float32 itself exceeds
                  1e-4 * 50 there (the plain version's own round trip reads
                  1.0e-2 on the H100, the JAX package's 5.6e-3 on the CPU).
-                 A block's output bits independent of the batch size.  Containers written on
-                 the card decode on the CPU's plain path and the other way
-                 round, within the scheme's bound of 100 eps.
+                 A block's output bits independent of the batch size.
+                 zfpx: n in {8, 12, 16, 32, 64}, eps in {1e-4, 1e-3, 0}, B = 64
+                 blocks uniform in [-50, 50] (the last 32 scaled by powers of
+                 two) with the edge cells of tests/test_torch_zfpx.py in
+                 blocks 1-5; emax, q and the decoded bits equal, bit for bit.
+                 Containers written on the card decode on the CPU's plain
+                 path and the other way round: wavelet within the scheme's
+                 bound of 100 eps, zfpx to the same bits as a container
+                 written on the CPU.
 4. ``main_path`` the CLI entry point, ``repro_torch.launch.compress.main``,
                  on one 512^3 cavitation snapshot at t = 9.4 us (the paper's
                  70-bubble cloud), all four QoIs, default spec (w3ai wavelet,
@@ -29,25 +36,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  each container is read back on the card.  Per QoI: CR, PSNR,
                  max |x - x^|, which must be <= 100 eps, and seconds.  The
                  kernels' launch counts are zeroed just before and read just
-                 after: each kernel must have run.  The CLI's report also
-                 splits each QoI's write and read into the pipeline's stage
-                 seconds (``core.pipeline.STAGE_SECONDS``).
-5. ``kernels``   per kernel, at the main path's shapes (forward B = 4096,
-                 inverse B = 32 blocks of 32^3): its launches on the main
+                 after: each kernel of the path must have run.  The CLI's
+                 report also splits each QoI's write and read into the
+                 pipeline's stage seconds (``core.pipeline.STAGE_SECONDS``).
+5. ``zfpx_path`` the same CLI run with ``--scheme zfpx`` (eps = 1e-3): max
+                 |x - x^| <= 16 eps, the header records the kernel path, and
+                 both zfpx kernels ran (counts zeroed just before).
+6. ``kernels``   one row per ported kernel, at its path's shapes (forward
+                 and zfpx encode B = 4096, inverse and zfpx decode B = 32
+                 blocks of 32^3: one read-path chunk): its launches on its
                  path, max |kernel - plain|, the kernel's own time per launch
                  (``ms``: its device time in a torch.profiler trace of
                  back-to-back calls), the wrapper's time per call
                  (``call_ms``: median of CUDA events around one call, the
                  host's launch path included), the plain version's time,
                  and the least time the card could take (bytes over
-                 3.35 TB/s, float32 flops over 67 TFLOP/s, NVIDIA's H100 SXM
-                 figures).  No single PyTorch call computes this function,
-                 so there is no library time.
+                 3.35 TB/s; the wavelets' float32 flops over 67 TFLOP/s,
+                 NVIDIA's H100 SXM figures; zfpx's int32 and float32
+                 operations over 16.7 Tops/s, its 64 int32 lanes per SM).  No
+                 single PyTorch call computes any of these functions, so
+                 there is no library time.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import shutil
@@ -59,13 +73,19 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12    # H100 SXM float32, outside the tensor cores
+# H100 SXM int32: 132 SMs x 64 int32 lanes x 1.98 GHz (the float32 figure
+# above counts 128 lanes x 2 flops per FMA); zfpx's operations are int32 and
+# float32 ones at one per lane and clock, so they are held to this rate
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 AMP = 50.0
 FWD_TOL = dict(rtol=1e-5, atol=2e-3)
 RT_TOL = dict(rtol=1e-5, atol=1e-4 * AMP)
 # w4i at 3 levels: float32's own round trip exceeds RT_TOL (see above)
 RT_TOL_W4I_L3 = dict(rtol=1e-5, atol=3e-2)
 EPS = 1e-3
+ZFPX_BOUND = 16 * EPS       # the zfpx scheme's declared bound
 N_MAIN, T_MAIN = 512, 9.4
+KERNEL_SOURCES = ("wavelet3d", "zfp_transform")
 
 
 def emit(obj) -> None:
@@ -126,7 +146,7 @@ def kernel_ms(fn, kernel: str, reps: int) -> float:
     return us / 1e3 / count
 
 
-def flops(kind: str, n: int, levels: int, nblocks: int) -> int:
+def wavelet_flops(kind: str, n: int, levels: int, nblocks: int) -> int:
     """Float32 operations of the transform (either direction): per output
     pair of each 1D step, the stencil's multiplies and adds plus the
     split/merge (8) and, for w4l, the update (3); 3 axes per level."""
@@ -134,11 +154,32 @@ def flops(kind: str, n: int, levels: int, nblocks: int) -> int:
     return nblocks * sum(3 * (n >> lv) ** 3 // 2 * per_pair for lv in range(levels))
 
 
-def bound_ms(kind: str, n: int, levels: int, nblocks: int) -> tuple[float, str]:
-    nbytes = 2 * nblocks * n ** 3 * 4  # each block read once and written once
+def bound_ms(nbytes: int, ops: float, ops_per_s: float) -> tuple[float, str]:
+    """The least time for moving ``nbytes`` once through HBM and doing
+    ``ops`` at ``ops_per_s``: the larger of the two, and which it is."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops(kind, n, levels, nblocks) / FP32_FLOPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def wavelet_bound_ms(kind: str, n: int, levels: int, nblocks: int) -> tuple[float, str]:
+    nbytes = 2 * nblocks * n ** 3 * 4  # each block read once and written once
+    return bound_ms(nbytes, wavelet_flops(kind, n, levels, nblocks), FP32_FLOPS_PER_S)
+
+
+# zfpx operations per 4^3 cell: the lifting (16 per 4-vector, 16 vectors per
+# axis, 3 axes) and, per value, encode's flush (2), |x| and max (2), scale
+# (1), conversion (1) and truncation (2), or decode's conversion (1), scale
+# (1) and flush (2)
+ZFPX_LIFT_OPS = 3 * 16 * 16
+
+
+def zfpx_bound_ms(n: int, nblocks: int, decode: bool) -> tuple[float, str]:
+    nc = (n // 4) ** 3
+    # the float32 blocks one way, the int32 q and emax streams the other
+    nbytes = nblocks * (n ** 3 * 4 + nc * 64 * 4 + nc * 4)
+    ops = nblocks * nc * (ZFPX_LIFT_OPS + 64 * (4 if decode else 8))
+    return bound_ms(nbytes, ops, INT32_OPS_PER_S)
 
 
 def phase_parity(torch, wv, kern, ops) -> dict:
@@ -178,9 +219,63 @@ def phase_parity(torch, wv, kern, ops) -> dict:
             "batch_invariant": True, "per_case_err": {"columns": list(worst), **per_case}}
 
 
+def zfpx_batch(torch, g, n: int):
+    """B = 64 blocks of side n uniform in [-50, 50], the last 32 scaled by
+    2^-16 .. 2^15, with the edge cells of tests/test_torch_zfpx.py as cell 0
+    of blocks 1-5: a subnormal max (emax -127), emax -101 (an infinite
+    scale, with zeros and subnormals), subnormals in a cell of emax -98,
+    emax 128, and zeros."""
+    x = torch.rand((64, n, n, n), generator=g, device="cuda") * (2 * AMP) - AMP
+    x[32:] *= torch.exp2(torch.arange(-16.0, 16.0, device="cuda")).view(32, 1, 1, 1)
+    u = torch.rand((4, 4, 4), generator=g, device="cuda") * 2 - 1
+    tiny = torch.where(u.abs() < 0.15, u * 0, u.sign() * 1e-39)
+    small = torch.where(u.abs() < 0.5, u.sign() * 1.1e-38, u * 2.0 ** -98)
+    for b, cell in enumerate((u * 1e-39, torch.where(u.abs() < 0.3, tiny, u * 2.0 ** -101),
+                              small, u * (2.0 ** 127 * 1.9), u * 0), start=1):
+        x[b, :4, :4, :4] = cell
+    return x
+
+
+ZFPX_EDGE_EMAX = [-127, -101, -98, 128, -127]
+
+
+def phase_zfpx_parity(torch, zf, ops) -> dict:
+    """The zfpx kernels against their plain version on the card, bit for bit."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(56)
+    cases, worst = 0, 0.0
+    for n in (8, 12, 16, 32, 64):
+        for eps in (1e-4, 1e-3, 0.0):  # eps = 0 truncates no planes
+            tag = f"zfpx n={n} eps={eps}"
+            x = zfpx_batch(torch, g, n)
+            e, q = ops.zfpx_encode(x, eps)
+            e_plain, q_plain = zf.encode(x, eps)
+            d = ops.zfpx_decode(e, q, eps, n)
+            d_plain = zf.decode(e_plain, q_plain, eps, n)
+            torch.cuda.synchronize()
+            check(e[1:6, 0].tolist() == ZFPX_EDGE_EMAX, f"{tag}: edge cells {e[1:6, 0].tolist()}")
+            check(_bit_equal(torch, e, e_plain), f"{tag}: emax differs from the plain version")
+            check(_bit_equal(torch, q, q_plain), f"{tag}: q differs from the plain version")
+            check(_bit_equal(torch, d, d_plain),
+                  f"{tag}: decoded bits differ from the plain version")
+            if eps > 0:  # the bound is 16 eps; unscaled blocks, no edge cell
+                err = (d[6:32] - x[6:32]).abs().max().item()
+                check(err <= 16 * eps, f"{tag}: round trip {err} > 16 eps")
+                worst = max(worst, err)
+            cases += 1
+    return {"cases": cases, "blocks_per_case": 64, "bit_exact": True,
+            "edge_emax": ZFPX_EDGE_EMAX, "round_trip_max_abs_err": worst}
+
+
+def _recorded_device(container, path: str) -> str:
+    with open(path, "rb") as fh:
+        return container._read_header(fh)[0]["spec"]["device"]
+
+
 def phase_interop(tmp: str) -> dict:
     """A small snapshot written on the card decodes on the CPU's plain path
-    and the other way round, within the scheme's bound."""
+    and the other way round: wavelet within the scheme's bound, zfpx to the
+    same bits as a container written on the CPU."""
     import numpy as np
 
     from repro_torch.core import container
@@ -193,72 +288,130 @@ def phase_interop(tmp: str) -> dict:
     for wdev, rdev in (("cuda", "cpu"), ("cpu", "cuda")):
         path = os.path.join(tmp, f"interop_{wdev}.cz")
         container.write_field(path, f, spec, device=wdev)
-        with open(path, "rb") as fh:
-            recorded = container._read_header(fh)[0]["spec"]["device"]
-        check(recorded == ("jax" if wdev == "cuda" else "host"), f"device provenance {wdev}")
+        check(_recorded_device(container, path) == ("jax" if wdev == "cuda" else "host"),
+              f"device provenance {wdev}")
         dec = container.read_field(path, device=rdev)
         errs[f"{wdev}->{rdev}"] = float(np.max(np.abs(dec - f)))
         check(dec.shape == f.shape and np.isfinite(dec).all(), f"interop {wdev}->{rdev}")
         check(errs[f"{wdev}->{rdev}"] <= 100 * EPS, f"interop error {wdev}->{rdev}")
-    return errs
+
+    zspec = CompressionSpec(scheme="zfpx")
+    paths = {}
+    for wdev in ("cuda", "cpu"):
+        paths[wdev] = os.path.join(tmp, f"interop_zfpx_{wdev}.cz")
+        container.write_field(paths[wdev], f, zspec, device=wdev)
+        check(_recorded_device(container, paths[wdev]) == ("jax" if wdev == "cuda" else "host"),
+              f"zfpx device provenance {wdev}")
+    check(list(container.iter_compressed(paths["cuda"]))
+          == list(container.iter_compressed(paths["cpu"])),
+          "zfpx chunks written on the card differ from the CPU's")
+    want = container.read_field(paths["cpu"], device="cpu")
+    for wdev in ("cuda", "cpu"):
+        for rdev in ("cpu", "cuda"):
+            dec = container.read_field(paths[wdev], device=rdev)
+            check(np.array_equal(dec.view(np.int32), want.view(np.int32)),
+                  f"zfpx decode {wdev}->{rdev} differs from cpu->cpu")
+    zerr = float(np.max(np.abs(want - f)))
+    check(zerr <= ZFPX_BOUND, f"zfpx interop error {zerr}")
+    return {"wavelet_max_abs_err": errs, "zfpx_chunks_identical": True,
+            "zfpx_decodes_identical": True, "zfpx_max_abs_err": zerr}
 
 
-def phase_main_path(tmp: str, kern) -> dict:
+def run_cli_path(tmp: str, name: str, scheme_args: list[str], spec: str, bound: float,
+                 kernels: tuple[str, ...], counts: list[dict]) -> dict:
+    """One 512^3 snapshot through the CLI on the card, every launch count
+    zeroed just before and read just after; each of ``kernels`` must run."""
+    from repro_torch.core import container
     from repro_torch.launch import compress
 
-    out = os.path.join(tmp, "fields")
-    for k in kern.LAUNCHES:
-        kern.LAUNCHES[k] = 0
+    out = os.path.join(tmp, name)
+    for c in counts:
+        for k in c:
+            c[k] = 0
     t0 = time.perf_counter()
     report = compress.main(["--source", "cavitation", "--n", str(N_MAIN),
                             "--t", str(T_MAIN), "--qoi", "p,rho,E,a2",
-                            "--device", "cuda", "--out", out])
+                            "--device", "cuda", "--out", out, *scheme_args])
     total_s = time.perf_counter() - t0
-    launches = dict(kern.LAUNCHES)
-    for name, n in launches.items():
-        check(n > 0, f"{name} never launched on the main path")
+    launches = {k: v for c in counts for k, v in c.items()}
+    for k in kernels:
+        check(launches[k] > 0, f"{k} never launched on the {name} path")
     fields = report["fields"]
     check(list(fields) == ["p", "rho", "E", "a2"], f"QoIs {list(fields)}")
     for q, r in fields.items():
-        check(r["max_abs_err"] <= 100 * EPS, f"{q}: max error {r['max_abs_err']} > 100 eps")
-        check(r["cr"] > 1 and r["psnr_db"] > 0, f"{q}: CR {r['cr']} PSNR {r['psnr_db']}")
-    from repro_torch.core import container
-
-    with open(os.path.join(out, "p.cz"), "rb") as fh:
-        check(container._read_header(fh)[0]["spec"]["device"] == "jax",
-              "main path header does not record the kernel path")
-    return {"n": N_MAIN, "t_us": T_MAIN, "spec": "CompressionSpec() defaults",
+        check(r["max_abs_err"] <= bound, f"{name} {q}: max error {r['max_abs_err']} > {bound}")
+        check(r["cr"] > 1 and r["psnr_db"] > 0, f"{name} {q}: CR {r['cr']} PSNR {r['psnr_db']}")
+    check(_recorded_device(container, os.path.join(out, "p.cz")) == "jax",
+          f"{name} header does not record the kernel path")
+    shutil.rmtree(out, ignore_errors=True)
+    return {"n": N_MAIN, "t_us": T_MAIN, "spec": spec,
             "generate_s": report["generate_s"], "total_s": total_s,
             "fields": fields, "launches": launches}
 
 
-def phase_kernels(torch, wv, ops, launches: dict) -> list[dict]:
+def _max_abs_diff(got, want) -> float:
+    if isinstance(got, tuple):
+        return max(_max_abs_diff(a, b) for a, b in zip(got, want))
+    return (got.double() - want.double()).abs().max().item()
+
+
+def _bit_equal(torch, got, want) -> bool:
+    """Equal bits; float32 tensors are compared as int32 (signed zeros too)."""
+    if isinstance(got, tuple):
+        return all(_bit_equal(torch, a, b) for a, b in zip(got, want))
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return torch.equal(got, want)
+
+
+def kernel_rows(torch, wv, zf, ops, launches: dict) -> list[dict]:
+    """One row per ported kernel at its path's shapes: the wavelet forward
+    and zfpx encode over a QoI's 4096 blocks, the inverse and zfpx decode
+    over one read-path chunk of 32 blocks."""
     g = torch.Generator(device="cuda")
     g.manual_seed(34)
     kind, n, lv = "w3ai", 32, 3   # the main path's spec
     nblocks = (N_MAIN // n) ** 3
     x = torch.rand((nblocks, n, n, n), generator=g, device="cuda") * (2 * AMP) - AMP
-    coeffs = ops.wavelet_forward(x, kind, lv)
-    chunk = coeffs[:32].contiguous()  # one read-path chunk: 4 MiB of blocks
+    chunk = ops.wavelet_forward(x, kind, lv)[:32].contiguous()
+    emax, q = ops.zfpx_encode(x, EPS)
+    emax, q = emax[:32].contiguous(), q[:32].contiguous()
+    wsrc, zsrc = ("src/repro_torch/kernels/csrc/wavelet3d.cu",
+                  "src/repro_torch/kernels/csrc/zfp_transform.cu")
+
+    def fwd_tol(arg) -> float:  # tests/test_kernels.py's forward tolerance
+        return FWD_TOL["atol"] + FWD_TOL["rtol"] * arg.abs().max().item()
+
+    table = [
+        ("wavelet3d_forward", wsrc, "src/repro/kernels/wavelet3d.py:139", "wavelet3d_kernel",
+         lambda: ops.wavelet_forward(x, kind, lv), lambda: wv.forward3d(x, kind, lv),
+         fwd_tol(x), 20, nblocks, wavelet_bound_ms(kind, n, lv, nblocks)),
+        ("wavelet3d_inverse", wsrc, "src/repro/kernels/wavelet3d.py:145", "wavelet3d_kernel",
+         lambda: ops.wavelet_inverse(chunk, kind, lv), lambda: wv.inverse3d(chunk, kind, lv),
+         fwd_tol(chunk), 50, 32, wavelet_bound_ms(kind, n, lv, 32)),
+        ("zfpx_encode", zsrc, "src/repro/kernels/zfp_transform.py:56", "zfpx_encode_kernel",
+         lambda: ops.zfpx_encode(x, EPS), lambda: zf.encode(x, EPS),
+         None, 20, nblocks, zfpx_bound_ms(n, nblocks, decode=False)),
+        ("zfpx_decode", zsrc, "src/repro/kernels/zfp_transform.py:82", "zfpx_decode_kernel",
+         lambda: ops.zfpx_decode(emax, q, EPS, n), lambda: zf.decode(emax, q, EPS, n),
+         None, 50, 32, zfpx_bound_ms(n, 32, decode=True)),
+    ]
     rows = []
-    for name, fn, plain, arg, reps in (
-            ("wavelet3d_forward", ops.wavelet_forward, wv.forward3d, x, 20),
-            ("wavelet3d_inverse", ops.wavelet_inverse, wv.inverse3d, chunk, 50)):
-        err = (fn(arg, kind, lv) - plain(arg, kind, lv)).abs().max().item()
-        check(err <= FWD_TOL["atol"] + FWD_TOL["rtol"] * arg.abs().max().item(),
-              f"{name} vs plain at the main shape: {err}")
-        b_ms, b_by = bound_ms(kind, n, lv, arg.shape[0])
+    for name, src, replaces, symbol, call, plain, tol, reps, blocks, (b_ms, b_by) in table:
+        got, want = call(), plain()
+        err = _max_abs_diff(got, want)
+        if tol is None:  # zfpx: bit for bit
+            check(_bit_equal(torch, got, want), f"{name} vs plain at the main shape: not bit-exact")
+        else:
+            check(err <= tol, f"{name} vs plain at the main shape: {err}")
         rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/wavelet3d.cu",
-            "replaces": "src/repro/kernels/wavelet3d.py:"
-                        + ("139" if name.endswith("forward") else "145"),
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err,
-            "ms": kernel_ms(lambda: fn(arg, kind, lv), "wavelet3d_kernel", reps),
-            "call_ms": median_ms(lambda: fn(arg, kind, lv), reps),
-            "plain_ms": median_ms(lambda: plain(arg, kind, lv), 5, warmup=1),
+            "ms": kernel_ms(call, symbol, reps),
+            "call_ms": median_ms(call, reps),
+            "plain_ms": median_ms(plain, 5, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "blocks": int(arg.shape[0]),
+            "blocks": blocks,
         })
     return rows
 
@@ -277,8 +430,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, src)
     from repro_torch.core import wavelets as wv
+    from repro_torch.core import zfpx as zf
     from repro_torch.kernels import _build, ops
-    from repro_torch.kernels import wavelet3d as kern
+    from repro_torch.kernels import wavelet3d as wkern
+    from repro_torch.kernels import zfp_transform as zkern
 
     card = smi()
     emit({"phase": "card", "nvidia_smi": card, "name": torch.cuda.get_device_name(0),
@@ -287,25 +442,39 @@ def main() -> int:
     print(card, flush=True)
 
     t0 = time.perf_counter()
-    lib = _build.BUILD_DIR / "libwavelet3d.so"
-    if lib.exists():  # build from the sources, never from an earlier run
-        lib.unlink()
-    _build.load("wavelet3d")
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": str(lib),
-          "flags": list(_build.NVCC_FLAGS)})
+    libs = [_build.BUILD_DIR / f"lib{name}.so" for name in KERNEL_SOURCES]
+    for lib in libs:  # build from the sources, never from an earlier run
+        if lib.exists():
+            lib.unlink()
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(_build.load, KERNEL_SOURCES))  # one nvcc per source, together
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "libraries": [str(lib) for lib in libs], "flags": list(_build.NVCC_FLAGS)})
 
     tmp = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
+    counts = [wkern.LAUNCHES, zkern.LAUNCHES]
     try:
-        parity = phase_parity(torch, wv, kern, ops)
-        parity["interop_max_abs_err"] = phase_interop(tmp)
+        parity = phase_parity(torch, wv, wkern, ops)
+        parity["zfpx"] = phase_zfpx_parity(torch, zf, ops)
+        parity["interop"] = phase_interop(tmp)
         emit({"phase": "parity", **parity})
-        main_path = phase_main_path(tmp, kern)
+        main_path = run_cli_path(tmp, "main_path", [], "CompressionSpec() defaults",
+                                 100 * EPS, ("wavelet3d_forward", "wavelet3d_inverse"),
+                                 counts)
         emit({"phase": "main_path", **main_path})
+        zfpx_path = run_cli_path(tmp, "zfpx_path", ["--scheme", "zfpx"],
+                                 "CompressionSpec(scheme='zfpx'): eps 1e-3, 32^3 blocks, "
+                                 "byte shuffle, zlib", ZFPX_BOUND,
+                                 ("zfpx_encode", "zfpx_decode"), counts)
+        emit({"phase": "zfpx_path", **zfpx_path})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    rows = phase_kernels(torch, wv, ops, main_path["launches"])
+    # each kernel's launches on its own path
+    launches = {k: main_path["launches"][k] for k in wkern.LAUNCHES}
+    launches.update({k: zfpx_path["launches"][k] for k in zkern.LAUNCHES})
+    rows = kernel_rows(torch, wv, zf, ops, launches)
     print(card, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Core codec of the port (counterpart of ``repro.core``).
 
-Module map: ``blocks`` (field <-> blocks), ``wavelets`` and ``threshold``
-(the stage-1 math, plain PyTorch), ``shuffle``, ``lossless`` and ``metrics``
-(host numpy), ``schemes/`` (the registry with ``wavelet`` and ``raw``),
+Module map: ``blocks`` (field <-> blocks), ``wavelets``, ``threshold`` and
+``zfpx`` (the stage-1 math, plain PyTorch), ``shuffle``, ``lossless`` and
+``metrics`` (host numpy), ``schemes/`` (the registry with ``wavelet``,
+``zfpx`` and ``raw``),
 ``pipeline`` (``CompressionSpec``, ``Pipeline``) and ``container`` (CZ2
 files).  Import the modules directly: this package imports nothing eagerly,
 so the kernels can depend on ``wavelets`` without a cycle.

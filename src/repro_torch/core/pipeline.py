@@ -72,7 +72,7 @@ def _timed(stage: str):
 
 @dataclasses.dataclass(frozen=True)
 class CompressionSpec:
-    scheme: str = "wavelet"      # a registered scheme (wavelet | raw)
+    scheme: str = "wavelet"      # a registered scheme (wavelet | zfpx | raw)
     wavelet: str = "w3ai"        # w4i | w4l | w3ai
     eps: float = 1e-3            # absolute error tolerance
     block_size: int = 32

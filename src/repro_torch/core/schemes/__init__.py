@@ -10,7 +10,7 @@ Each scheme is a self-describing object that owns
     device)`` — the host byte layout of one aggregation-buffer chunk, the
     same bytes the reference writes.
 
-Only ``wavelet`` and ``raw`` are ported so far; the reference's other
+``wavelet``, ``zfpx`` and ``raw`` are ported so far; the reference's other
 schemes are named in :data:`NOT_YET_PORTED` and asking for one raises
 ``ValueError``.
 """
@@ -34,7 +34,7 @@ __all__ = ["Scheme", "NOT_YET_PORTED", "register_scheme", "get_scheme",
            "torch_device"]
 
 #: schemes of the reference that this package does not implement yet
-NOT_YET_PORTED = ("zfpx", "lorenzo", "szx", "fpzipx", "auto")
+NOT_YET_PORTED = ("lorenzo", "szx", "fpzipx", "auto")
 
 _REGISTRY: dict[str, "Scheme"] = {}
 
@@ -122,4 +122,4 @@ def scheme_names() -> list[str]:
 
 
 # Built-in schemes self-register on import.
-from . import raw, wavelet  # noqa: E402,F401
+from . import raw, wavelet, zfpx  # noqa: E402,F401

@@ -42,6 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
+_NAME_LOCKS: dict[str, threading.Lock] = {}
 _LOADED: dict[str, ctypes.CDLL] = {}
 
 
@@ -72,8 +73,11 @@ def _build(src: Path, lib: Path, digest: str) -> None:
 
 def load(name: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<name>.cu``, built if missing or
-    stale, loaded once per process."""
+    stale, loaded once per process.  Different sources build concurrently
+    when loaded from different threads."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LOADED:
             return _LOADED[name]
         src = CSRC / f"{name}.cu"

@@ -9,5 +9,6 @@ from __future__ import annotations
 
 from .wavelet3d import wavelet3d_forward as wavelet_forward
 from .wavelet3d import wavelet3d_inverse as wavelet_inverse
+from .zfp_transform import zfpx_decode, zfpx_encode
 
-__all__ = ["wavelet_forward", "wavelet_inverse"]
+__all__ = ["wavelet_forward", "wavelet_inverse", "zfpx_encode", "zfpx_decode"]

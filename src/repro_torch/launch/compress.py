@@ -9,6 +9,7 @@ stage); or decompresses one container.
 Examples:
   python -m repro_torch.launch.compress --n 512 --t 9.4 --out artifacts/fields
   python -m repro_torch.launch.compress --device cpu --n 64 --out /tmp/fields
+  python -m repro_torch.launch.compress --scheme zfpx --n 512 --out artifacts/zfpx
   python -m repro_torch.launch.compress --decompress artifacts/fields/p.cz \
       --verify-against p.npy
 

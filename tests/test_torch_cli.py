@@ -1,7 +1,7 @@
-"""The port's slice as a whole, on the CPU: the CLI generates a cavitation
-snapshot, compresses every QoI through the wavelet pipeline, and each
-container it writes reads back in the JAX package within the scheme's
-declared bound (100 eps) of the reference generator's field."""
+"""The port's slices as a whole, on the CPU: the CLI generates a cavitation
+snapshot, compresses every QoI through the wavelet pipeline (or the zfpx
+one), and each container it writes reads back in the JAX package within
+the scheme's declared bound (100 eps; 16 eps for zfpx) of the field."""
 import json
 import os
 import pathlib
@@ -11,11 +11,14 @@ import sys
 import numpy as np
 import pytest
 
+from repro.core import CompressionSpec as RSpec
 from repro.core import container as rcont
 from repro.fields import CloudConfig, cavitation_fields
 
 from repro_torch.core import container as tcont
 from repro_torch.core.pipeline import CompressionSpec
+from repro_torch.fields import CloudConfig as TCloudConfig
+from repro_torch.fields import cavitation_fields as tcavitation_fields
 from repro_torch.launch import compress
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -60,9 +63,33 @@ def test_cli_decompress_verifies(tmp_path, capsys):
     assert "PSNR vs reference" in capsys.readouterr().out
 
 
+def test_cli_zfpx_writes_and_decompress_verifies(tmp_path, capsys):
+    """``--scheme zfpx`` on the CPU: the report has the wavelet path's
+    fields, each container is the reference's bytes for the same field, and
+    ``--decompress --verify-against`` reads one back."""
+    out = tmp_path / "fields"
+    report = compress.main(["--device", "cpu", "--scheme", "zfpx", "--n", "32",
+                            "--qoi", "p,a2", "--out", str(out)])
+    # the field the CLI compressed: the port's generator, on the CPU
+    ref = {q: f.numpy() for q, f in
+           tcavitation_fields(TCloudConfig(n=32), 9.4, device="cpu").items()}
+    assert list(report["fields"]) == ["p", "a2"]
+    for q, r in report["fields"].items():
+        assert r["max_abs_err"] <= 16 * EPS and r["cr"] > 1
+        assert list(r["stage_s"]) == ["stage1", "serialize", "stage2_encode",
+                                      "stage2_decode", "deserialize"]
+        rcont.write_field(str(tmp_path / f"{q}.ref.cz"), ref[q], RSpec(scheme="zfpx"))
+        assert (out / f"{q}.cz").read_bytes() == (tmp_path / f"{q}.ref.cz").read_bytes()
+    np.save(tmp_path / "p.npy", ref["p"])
+    capsys.readouterr()
+    assert compress.main(["--device", "cpu", "--decompress", str(out / "p.cz"),
+                          "--verify-against", str(tmp_path / "p.npy")]) is None
+    assert "PSNR vs reference" in capsys.readouterr().out
+
+
 def test_cli_rejects_unported_scheme(tmp_path, capsys):
     with pytest.raises(SystemExit) as exc:
-        compress.main(["--device", "cpu", "--n", "32", "--scheme", "zfpx",
+        compress.main(["--device", "cpu", "--n", "32", "--scheme", "lorenzo",
                        "--out", str(tmp_path)])
     assert exc.value.code == 2
     assert "not yet ported" in capsys.readouterr().err

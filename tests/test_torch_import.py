@@ -76,6 +76,10 @@ def test_kernel_wrapper_runs_plain_only_on_cpu():
     from repro_torch.kernels import ops
 
     x = torch.empty((2, 8, 8, 8), device="meta")
-    for fn in (ops.wavelet_forward, ops.wavelet_inverse):
+    for fn in (ops.wavelet_forward, ops.wavelet_inverse, ops.zfpx_encode):
         with pytest.raises(ValueError, match="CUDA"):
             fn(x)
+    emax = torch.empty((2, 8), dtype=torch.int32, device="meta")
+    q = torch.empty((2, 8, 64), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.zfpx_decode(emax, q, n=8)

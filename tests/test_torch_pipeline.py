@@ -94,7 +94,7 @@ def test_device_provenance_is_readable_by_the_reference():
     RSpec(**on_card).validate()
 
 
-@pytest.mark.parametrize("scheme", ["zfpx", "lorenzo", "szx", "fpzipx", "auto"])
+@pytest.mark.parametrize("scheme", ["lorenzo", "szx", "fpzipx", "auto"])
 def test_unported_schemes_raise(scheme):
     with pytest.raises(ValueError, match=f"scheme '{scheme}' not yet ported"):
         CompressionSpec(scheme=scheme).validate()
@@ -107,3 +107,14 @@ def test_spec_json_and_hash_match_reference():
     assert CompressionSpec.from_json(RSpec(**kw).to_json()) == CompressionSpec(**kw)
     with pytest.raises(ValueError):
         CompressionSpec(device="cuda").validate()
+
+
+def test_zfpx_spec_json_and_hash_match_reference():
+    """zfpx specs rebuild in either package; header and chunk bytes are
+    held to the reference's in tests/test_torch_zfpx.py."""
+    kw = dict(scheme="zfpx", eps=1e-2, block_size=8, shuffle="bit")
+    assert CompressionSpec(**kw).validate().to_json() == RSpec(**kw).validate().to_json()
+    assert hash(CompressionSpec(**kw)) == hash(CompressionSpec(**kw))
+    assert CompressionSpec.from_json(RSpec(**kw).to_json()) == CompressionSpec(**kw)
+    pipe = Pipeline(CompressionSpec(**kw), device="cpu")
+    assert pipe.base_header()["scheme_params"] == {"eps": 1e-2, "device": "host"}
