@@ -25,10 +25,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  blocks uniform in [-50, 50] (the last 32 scaled by powers of
                  two) with the edge cells of tests/test_torch_zfpx.py in
                  blocks 1-5; emax, q and the decoded bits equal, bit for bit.
+                 lorenzo: n in {6, 8, 10, 16, 32, 64}, eps in {1e-4, 1e-3,
+                 2e-7} (2e-7: |q| > 2^24), B = 64 blocks uniform in [-50, 50]
+                 with the traps of tests/test_torch_lorenzo.py in blocks
+                 1-4 (amplitude 3e4, NaN and inf, subnormals and zeros,
+                 values on the half-grid); residuals and decoded bits equal,
+                 bit for bit, and the round trip of the plain blocks within
+                 eps * (1 + 1e-4) + spacing(50); residuals over all of int32
+                 (wrapping) and a subnormal 2 eps decode to the same bits.
                  Containers written on the card decode on the CPU's plain
                  path and the other way round: wavelet within the scheme's
-                 bound of 100 eps, zfpx to the same bits as a container
-                 written on the CPU.
+                 bound of 100 eps, zfpx and lorenzo to the same bits as a
+                 container written on the CPU, whose chunk bytes they have.
+                 An szx file written by the CLI with --device cuda records
+                 "host" (szx has no kernel, as in the reference) and
+                 decodes within its bound.
 4. ``main_path`` the CLI entry point, ``repro_torch.launch.compress.main``,
                  on one 512^3 cavitation snapshot at t = 9.4 us (the paper's
                  70-bubble cloud), all four QoIs, default spec (w3ai wavelet,
@@ -39,23 +50,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  after: each kernel of the path must have run.  The CLI's
                  report also splits each QoI's write and read into the
                  pipeline's stage seconds (``core.pipeline.STAGE_SECONDS``).
-5. ``zfpx_path`` the same CLI run with ``--scheme zfpx`` (eps = 1e-3): max
-                 |x - x^| <= 16 eps, the header records the kernel path, and
-                 both zfpx kernels ran (counts zeroed just before).
-6. ``kernels``   one row per ported kernel, at its path's shapes (forward
-                 and zfpx encode B = 4096, inverse and zfpx decode B = 32
-                 blocks of 32^3: one read-path chunk): its launches on its
-                 path, max |kernel - plain|, the kernel's own time per launch
-                 (``ms``: its device time in a torch.profiler trace of
-                 back-to-back calls), the wrapper's time per call
+5. ``zfpx_path`` the same CLI run with ``--scheme zfpx`` (eps = 1e-3) on the
+                 QoI p only (its four QoIs took 187-238 s, mostly zlib):
+                 max |x - x^| <= 16 eps, the header records the kernel path,
+                 and both zfpx kernels ran (counts zeroed just before).
+6. ``lorenzo_path`` the same CLI run with ``--scheme lorenzo`` (eps = 1e-3),
+                 all four QoIs: max |x - x^| <= eps * (1 + 1e-4) +
+                 spacing(max|x|), the header records the kernel path, and
+                 both lorenzo kernels ran (counts zeroed just before).
+7. ``kernels``   one row per ported kernel, at its path's shapes (forward,
+                 zfpx and lorenzo encode B = 4096, inverse, zfpx and lorenzo
+                 decode B = 32 blocks of 32^3: one read-path chunk): its
+                 launches on its path, max |kernel - plain|, the kernel's
+                 own time per call (``ms``: its device time in a
+                 torch.profiler trace of back-to-back calls; the lorenzo
+                 decode's three passes summed), the wrapper's time per call
                  (``call_ms``: median of CUDA events around one call, the
                  host's launch path included), the plain version's time,
                  and the least time the card could take (bytes over
                  3.35 TB/s; the wavelets' float32 flops over 67 TFLOP/s,
-                 NVIDIA's H100 SXM figures; zfpx's int32 and float32
-                 operations over 16.7 Tops/s, its 64 int32 lanes per SM).  No
-                 single PyTorch call computes any of these functions, so
-                 there is no library time.
+                 NVIDIA's H100 SXM figures; zfpx's and lorenzo's int32 and
+                 float32 operations over 16.7 Tops/s, its 64 int32 lanes per
+                 SM).  The zfpx and lorenzo kernels are held to the plain
+                 version bit for bit.  No single PyTorch call computes any
+                 of these functions, so there is no library time.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -85,7 +103,17 @@ RT_TOL_W4I_L3 = dict(rtol=1e-5, atol=3e-2)
 EPS = 1e-3
 ZFPX_BOUND = 16 * EPS       # the zfpx scheme's declared bound
 N_MAIN, T_MAIN = 512, 9.4
-KERNEL_SOURCES = ("wavelet3d", "zfp_transform")
+KERNEL_SOURCES = ("wavelet3d", "zfp_transform", "lorenzo")
+ZFPX_PATH_QOIS = ("p",)     # one QoI: its four took 187-238 s, mostly zlib
+
+
+def lorenzo_bound(max_abs: float, eps: float = EPS) -> float:
+    """The lorenzo and szx bound as the reference's tests hold it
+    (tests/test_kernels.py): eps, plus float32's spacing of max |x|, since
+    past |q| = 2^24 the grid is coarser than 2 eps."""
+    import numpy as np
+
+    return eps * (1 + 1e-4) + float(np.spacing(np.float32(max_abs)))
 
 
 def emit(obj) -> None:
@@ -123,10 +151,12 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(fn, kernel: str, reps: int) -> float:
-    """The kernel's own device time per launch, in ms, from
-    a torch.profiler trace of ``reps`` back-to-back calls of ``fn``.  The
-    trace can miss a launch at its start, so the mean is over those seen."""
+def kernel_ms(fn, kernel: str, reps: int, per_call: int = 1) -> float:
+    """The kernel's own device time per call, in ms, from a torch.profiler
+    trace of ``reps`` back-to-back calls of ``fn``: every CUDA kernel whose
+    name holds ``kernel`` counts, ``per_call`` of them in each call (the
+    lorenzo decode's three passes).  The trace can miss a launch at its
+    start, so the mean is over those seen."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -141,9 +171,9 @@ def kernel_ms(fn, kernel: str, reps: int) -> float:
         if kernel in ev.key:
             us += ev.device_time_total
             count += ev.count
-    check(reps // 2 <= count <= reps and us > 0,
-          f"profiler saw {count} launches of {kernel} ({us} us) of {reps}")
-    return us / 1e3 / count
+    check(reps // 2 <= count / per_call <= reps and us > 0,
+          f"profiler saw {count} launches of {kernel} ({us} us) of {reps} x {per_call}")
+    return us / 1e3 / (count / per_call)
 
 
 def wavelet_flops(kind: str, n: int, levels: int, nblocks: int) -> int:
@@ -179,6 +209,19 @@ def zfpx_bound_ms(n: int, nblocks: int, decode: bool) -> tuple[float, str]:
     # the float32 blocks one way, the int32 q and emax streams the other
     nbytes = nblocks * (n ** 3 * 4 + nc * 64 * 4 + nc * 4)
     ops = nblocks * nc * (ZFPX_LIFT_OPS + 64 * (4 if decode else 8))
+    return bound_ms(nbytes, ops, INT32_OPS_PER_S)
+
+
+# lorenzo operations per element: the quantizer (2 multiplies, 2 roundings,
+# the FMA, the add, the conversion and 4 flushes of 2 each) and the three
+# differences (encode); the three sums, the conversion, the product and its
+# flush (decode)
+LORENZO_ENC_OPS, LORENZO_DEC_OPS = 18, 7
+
+
+def lorenzo_bound_ms(n: int, nblocks: int, decode: bool) -> tuple[float, str]:
+    nbytes = 2 * nblocks * n ** 3 * 4  # 4 bytes in and 4 out per element
+    ops = nblocks * n ** 3 * (LORENZO_DEC_OPS if decode else LORENZO_ENC_OPS)
     return bound_ms(nbytes, ops, INT32_OPS_PER_S)
 
 
@@ -267,6 +310,55 @@ def phase_zfpx_parity(torch, zf, ops) -> dict:
             "edge_emax": ZFPX_EDGE_EMAX, "round_trip_max_abs_err": worst}
 
 
+def lorenzo_batch(torch, g, n: int, eps: float):
+    """B = 64 blocks of side n uniform in [-50, 50], with the traps of
+    tests/test_torch_lorenzo.py: block 1 at amplitude 3e4 (the FMA), block
+    2 with NaN and +-inf, block 3 subnormal with zeros, block 4 on the
+    half-grid of 2 eps."""
+    x = torch.rand((64, n, n, n), generator=g, device="cuda") * (2 * AMP) - AMP
+    x[1] *= 600.0
+    flat = x[2].view(-1)
+    flat[::7] = float("nan")
+    flat[1::11] = float("inf")
+    flat[2::13] = -float("inf")
+    u = torch.rand((n, n, n), generator=g, device="cuda") * 2 - 1
+    x[3] = torch.where(u.abs() < 0.2, u * 0, u * 1.1e-38)
+    k = torch.randint(-1000, 1000, (n, n, n), generator=g, device="cuda")
+    x[4] = (k.float() + 0.5) * 2 * eps
+    return x
+
+
+def phase_lorenzo_parity(torch, sz, ops) -> dict:
+    """The lorenzo kernels against their plain version on the card, bit for
+    bit; the round trip of the plain blocks within the reference's bound."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(78)
+    cases, worst = 0, {}
+    for n in (6, 8, 10, 16, 32, 64):
+        for eps in (1e-4, 1e-3, 2e-7):
+            tag = f"lorenzo n={n} eps={eps}"
+            x = lorenzo_batch(torch, g, n, eps)
+            r, r_plain = ops.lorenzo_encode(x, eps), sz.encode(x, eps)
+            d, d_plain = ops.lorenzo_decode(r, eps), sz.decode(r_plain, eps)
+            torch.cuda.synchronize()
+            check(_bit_equal(torch, r, r_plain), f"{tag}: residuals differ from the plain one")
+            check(_bit_equal(torch, d, d_plain), f"{tag}: decoded bits differ from the plain one")
+            err = (d[5:] - x[5:]).abs().max().item()
+            bound = lorenzo_bound(AMP, eps)
+            check(err <= bound, f"{tag}: round trip {err} > {bound}")
+            worst[str(eps)] = max(worst.get(str(eps), 0.0), err)
+            cases += 1
+    # wrapping sums over all of int32, and a subnormal 2 eps (decodes to zeros)
+    for eps in (1e-3, 5e-39):
+        r = torch.randint(-2 ** 31, 2 ** 31, (64, 16, 16, 16), generator=g, device="cuda",
+                          dtype=torch.int64).to(torch.int32)
+        d = ops.lorenzo_decode(r, eps)
+        check(_bit_equal(torch, d, sz.decode(r, eps)), f"lorenzo decode eps={eps}: int32 range")
+        cases += 1
+    return {"cases": cases, "blocks_per_case": 64, "bit_exact": True,
+            "round_trip_max_abs_err_by_eps": worst}
+
+
 def _recorded_device(container, path: str) -> str:
     with open(path, "rb") as fh:
         return container._read_header(fh)[0]["spec"]["device"]
@@ -313,14 +405,50 @@ def phase_interop(tmp: str) -> dict:
                   f"zfpx decode {wdev}->{rdev} differs from cpu->cpu")
     zerr = float(np.max(np.abs(want - f)))
     check(zerr <= ZFPX_BOUND, f"zfpx interop error {zerr}")
+
+    lspec = CompressionSpec(scheme="lorenzo")
+    for wdev in ("cuda", "cpu"):
+        paths[wdev] = os.path.join(tmp, f"interop_lorenzo_{wdev}.cz")
+        container.write_field(paths[wdev], f, lspec, device=wdev)
+        check(_recorded_device(container, paths[wdev]) == ("jax" if wdev == "cuda" else "host"),
+              f"lorenzo device provenance {wdev}")
+    check(list(container.iter_compressed(paths["cuda"]))
+          == list(container.iter_compressed(paths["cpu"])),
+          "lorenzo chunks written on the card differ from the CPU's")
+    want = container.read_field(paths["cpu"], device="cpu")
+    for wdev in ("cuda", "cpu"):
+        for rdev in ("cpu", "cuda"):
+            dec = container.read_field(paths[wdev], device=rdev)
+            check(np.array_equal(dec.view(np.int32), want.view(np.int32)),
+                  f"lorenzo decode {wdev}->{rdev} differs from cpu->cpu")
+    lerr = float(np.max(np.abs(want - f)))
+    check(lerr <= lorenzo_bound(float(np.max(np.abs(f)))), f"lorenzo interop error {lerr}")
+
+    # szx has no kernel: on the card its plain math runs as torch ops, and
+    # the header says "host", as the reference's does
+    from repro_torch.launch import compress
+
+    out = os.path.join(tmp, "interop_szx")
+    report = compress.main(["--source", "cavitation", "--n", "64", "--t", str(T_MAIN),
+                            "--qoi", "p", "--device", "cuda", "--scheme", "szx",
+                            "--out", out])
+    check(_recorded_device(container, os.path.join(out, "p.cz")) == "host",
+          "szx written on the card does not record host")
+    serr = report["fields"]["p"]["max_abs_err"]
+    check(serr <= lorenzo_bound(report["fields"]["p"]["max_abs"]), f"szx interop error {serr}")
     return {"wavelet_max_abs_err": errs, "zfpx_chunks_identical": True,
-            "zfpx_decodes_identical": True, "zfpx_max_abs_err": zerr}
+            "zfpx_decodes_identical": True, "zfpx_max_abs_err": zerr,
+            "lorenzo_chunks_identical": True, "lorenzo_decodes_identical": True,
+            "lorenzo_max_abs_err": lerr, "szx_recorded_device": "host",
+            "szx_max_abs_err": serr}
 
 
-def run_cli_path(tmp: str, name: str, scheme_args: list[str], spec: str, bound: float,
-                 kernels: tuple[str, ...], counts: list[dict]) -> dict:
+def run_cli_path(tmp: str, name: str, scheme_args: list[str], spec: str, bound,
+                 kernels: tuple[str, ...], counts: list[dict],
+                 qois: tuple[str, ...] = ("p", "rho", "E", "a2")) -> dict:
     """One 512^3 snapshot through the CLI on the card, every launch count
-    zeroed just before and read just after; each of ``kernels`` must run."""
+    zeroed just before and read just after; each of ``kernels`` must run.
+    ``bound(max_abs)`` is the scheme's bound for a QoI of that max |x|."""
     from repro_torch.core import container
     from repro_torch.launch import compress
 
@@ -330,21 +458,22 @@ def run_cli_path(tmp: str, name: str, scheme_args: list[str], spec: str, bound: 
             c[k] = 0
     t0 = time.perf_counter()
     report = compress.main(["--source", "cavitation", "--n", str(N_MAIN),
-                            "--t", str(T_MAIN), "--qoi", "p,rho,E,a2",
+                            "--t", str(T_MAIN), "--qoi", ",".join(qois),
                             "--device", "cuda", "--out", out, *scheme_args])
     total_s = time.perf_counter() - t0
     launches = {k: v for c in counts for k, v in c.items()}
     for k in kernels:
         check(launches[k] > 0, f"{k} never launched on the {name} path")
     fields = report["fields"]
-    check(list(fields) == ["p", "rho", "E", "a2"], f"QoIs {list(fields)}")
+    check(list(fields) == list(qois), f"QoIs {list(fields)}")
     for q, r in fields.items():
-        check(r["max_abs_err"] <= bound, f"{name} {q}: max error {r['max_abs_err']} > {bound}")
+        b = bound(r["max_abs"])
+        check(r["max_abs_err"] <= b, f"{name} {q}: max error {r['max_abs_err']} > {b}")
         check(r["cr"] > 1 and r["psnr_db"] > 0, f"{name} {q}: CR {r['cr']} PSNR {r['psnr_db']}")
     check(_recorded_device(container, os.path.join(out, "p.cz")) == "jax",
           f"{name} header does not record the kernel path")
     shutil.rmtree(out, ignore_errors=True)
-    return {"n": N_MAIN, "t_us": T_MAIN, "spec": spec,
+    return {"n": N_MAIN, "t_us": T_MAIN, "spec": spec, "qois": list(qois),
             "generate_s": report["generate_s"], "total_s": total_s,
             "fields": fields, "launches": launches}
 
@@ -364,10 +493,10 @@ def _bit_equal(torch, got, want) -> bool:
     return torch.equal(got, want)
 
 
-def kernel_rows(torch, wv, zf, ops, launches: dict) -> list[dict]:
-    """One row per ported kernel at its path's shapes: the wavelet forward
-    and zfpx encode over a QoI's 4096 blocks, the inverse and zfpx decode
-    over one read-path chunk of 32 blocks."""
+def kernel_rows(torch, wv, zf, sz, ops, launches: dict) -> list[dict]:
+    """One row per ported kernel at its path's shapes: the wavelet forward,
+    zfpx and lorenzo encode over a QoI's 4096 blocks, the inverse, zfpx and
+    lorenzo decode over one read-path chunk of 32 blocks."""
     g = torch.Generator(device="cuda")
     g.manual_seed(34)
     kind, n, lv = "w3ai", 32, 3   # the main path's spec
@@ -376,8 +505,10 @@ def kernel_rows(torch, wv, zf, ops, launches: dict) -> list[dict]:
     chunk = ops.wavelet_forward(x, kind, lv)[:32].contiguous()
     emax, q = ops.zfpx_encode(x, EPS)
     emax, q = emax[:32].contiguous(), q[:32].contiguous()
-    wsrc, zsrc = ("src/repro_torch/kernels/csrc/wavelet3d.cu",
-                  "src/repro_torch/kernels/csrc/zfp_transform.cu")
+    res = ops.lorenzo_encode(x, EPS)[:32].contiguous()
+    wsrc, zsrc, lsrc = ("src/repro_torch/kernels/csrc/wavelet3d.cu",
+                        "src/repro_torch/kernels/csrc/zfp_transform.cu",
+                        "src/repro_torch/kernels/csrc/lorenzo.cu")
 
     def fwd_tol(arg) -> float:  # tests/test_kernels.py's forward tolerance
         return FWD_TOL["atol"] + FWD_TOL["rtol"] * arg.abs().max().item()
@@ -395,19 +526,26 @@ def kernel_rows(torch, wv, zf, ops, launches: dict) -> list[dict]:
         ("zfpx_decode", zsrc, "src/repro/kernels/zfp_transform.py:82", "zfpx_decode_kernel",
          lambda: ops.zfpx_decode(emax, q, EPS, n), lambda: zf.decode(emax, q, EPS, n),
          None, 50, 32, zfpx_bound_ms(n, 32, decode=True)),
+        ("lorenzo_encode", lsrc, "src/repro/kernels/lorenzo.py:57", "lorenzo_encode_kernel",
+         lambda: ops.lorenzo_encode(x, EPS), lambda: sz.encode(x, EPS),
+         None, 20, nblocks, lorenzo_bound_ms(n, nblocks, decode=False)),
+        ("lorenzo_decode", lsrc, "src/repro/kernels/lorenzo.py:63", "lorenzo_decode_scan",
+         lambda: ops.lorenzo_decode(res, EPS), lambda: sz.decode(res, EPS),
+         None, 50, 32, lorenzo_bound_ms(n, 32, decode=True)),
     ]
+    per_call = {"lorenzo_decode": 3}  # its three passes, each a CUDA kernel
     rows = []
     for name, src, replaces, symbol, call, plain, tol, reps, blocks, (b_ms, b_by) in table:
         got, want = call(), plain()
         err = _max_abs_diff(got, want)
-        if tol is None:  # zfpx: bit for bit
+        if tol is None:  # zfpx and lorenzo: bit for bit
             check(_bit_equal(torch, got, want), f"{name} vs plain at the main shape: not bit-exact")
         else:
             check(err <= tol, f"{name} vs plain at the main shape: {err}")
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err,
-            "ms": kernel_ms(call, symbol, reps),
+            "ms": kernel_ms(call, symbol, reps, per_call.get(name, 1)),
             "call_ms": median_ms(call, reps),
             "plain_ms": median_ms(plain, 5, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -429,9 +567,11 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, src)
+    from repro_torch.core import szx as sz
     from repro_torch.core import wavelets as wv
     from repro_torch.core import zfpx as zf
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import lorenzo as lkern
     from repro_torch.kernels import wavelet3d as wkern
     from repro_torch.kernels import zfp_transform as zkern
 
@@ -454,27 +594,34 @@ def main() -> int:
     tmp = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    counts = [wkern.LAUNCHES, zkern.LAUNCHES]
+    counts = [wkern.LAUNCHES, zkern.LAUNCHES, lkern.LAUNCHES]
     try:
         parity = phase_parity(torch, wv, wkern, ops)
         parity["zfpx"] = phase_zfpx_parity(torch, zf, ops)
+        parity["lorenzo"] = phase_lorenzo_parity(torch, sz, ops)
         parity["interop"] = phase_interop(tmp)
         emit({"phase": "parity", **parity})
         main_path = run_cli_path(tmp, "main_path", [], "CompressionSpec() defaults",
-                                 100 * EPS, ("wavelet3d_forward", "wavelet3d_inverse"),
-                                 counts)
+                                 lambda _m: 100 * EPS,
+                                 ("wavelet3d_forward", "wavelet3d_inverse"), counts)
         emit({"phase": "main_path", **main_path})
         zfpx_path = run_cli_path(tmp, "zfpx_path", ["--scheme", "zfpx"],
                                  "CompressionSpec(scheme='zfpx'): eps 1e-3, 32^3 blocks, "
-                                 "byte shuffle, zlib", ZFPX_BOUND,
-                                 ("zfpx_encode", "zfpx_decode"), counts)
+                                 "byte shuffle, zlib", lambda _m: ZFPX_BOUND,
+                                 ("zfpx_encode", "zfpx_decode"), counts, ZFPX_PATH_QOIS)
         emit({"phase": "zfpx_path", **zfpx_path})
+        lorenzo_path = run_cli_path(tmp, "lorenzo_path", ["--scheme", "lorenzo"],
+                                    "CompressionSpec(scheme='lorenzo'): eps 1e-3, 32^3 "
+                                    "blocks, byte shuffle, zlib", lorenzo_bound,
+                                    ("lorenzo_encode", "lorenzo_decode"), counts)
+        emit({"phase": "lorenzo_path", **lorenzo_path})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's launches on its own path
     launches = {k: main_path["launches"][k] for k in wkern.LAUNCHES}
     launches.update({k: zfpx_path["launches"][k] for k in zkern.LAUNCHES})
-    rows = kernel_rows(torch, wv, zf, ops, launches)
+    launches.update({k: lorenzo_path["launches"][k] for k in lkern.LAUNCHES})
+    rows = kernel_rows(torch, wv, zf, sz, ops, launches)
     print(card, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

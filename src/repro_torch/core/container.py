@@ -157,7 +157,8 @@ def read_field(path: str, device=DEFAULT_DEVICE) -> np.ndarray:
     blocks if the file was written from a block batch."""
     header, chunks = _read(path)
     pipe = Pipeline(CompressionSpec.from_json(header["spec"]), device=device)
-    blocks = np.concatenate([pipe.decompress_chunk(c, nblk) for c, nblk in chunks])
+    fmt = int(header.get("format", 1))
+    blocks = np.concatenate([pipe.decompress_chunk(c, nblk, fmt) for c, nblk in chunks])
     shape = header.get("field_shape")
     if shape is None:
         return blocks

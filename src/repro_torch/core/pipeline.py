@@ -72,7 +72,7 @@ def _timed(stage: str):
 
 @dataclasses.dataclass(frozen=True)
 class CompressionSpec:
-    scheme: str = "wavelet"      # a registered scheme (wavelet | zfpx | raw)
+    scheme: str = "wavelet"      # a registered scheme (wavelet | zfpx | lorenzo | szx | raw)
     wavelet: str = "w3ai"        # w4i | w4l | w3ai
     eps: float = 1e-3            # absolute error tolerance
     block_size: int = 32
@@ -127,6 +127,11 @@ class CompressedField:
     @property
     def spec(self) -> CompressionSpec:
         return CompressionSpec.from_json(self.header["spec"])
+
+    @property
+    def format(self) -> int:
+        """Chunk byte-layout version (headers before CZ2 carried none)."""
+        return int(self.header.get("format", 1))
 
 
 class Pipeline:
@@ -258,18 +263,21 @@ class Pipeline:
 
     # -- decompression -----------------------------------------------------
 
-    def decompress_chunk(self, buf: bytes, nblk: int) -> np.ndarray:
+    def decompress_chunk(self, buf: bytes, nblk: int,
+                         fmt: int = CODEC_FORMAT) -> np.ndarray:
+        """One chunk written under container format ``fmt`` -> its blocks."""
+        spec = self.scheme.decode_spec(self.spec, fmt)
         with _timed("stage2_decode"):
-            payload = lossless.decode(buf, self.spec.stage2)
+            payload = lossless.decode(buf, spec.stage2)
         with _timed("deserialize"):
-            blocks = self.scheme.deserialize(payload, nblk, self.spec, self.device)
+            blocks = self.scheme.deserialize(payload, nblk, spec, self.device)
         # lossy schemes compute in float32; the dtype tag restores the field
         # dtype (raw already deserializes in the tagged dtype — no-op there)
-        return blocks.astype(self.spec.np_dtype, copy=False)
+        return blocks.astype(spec.np_dtype, copy=False)
 
     def decompress_blocks(self, comp: CompressedField) -> np.ndarray:
         return np.concatenate([
-            self.decompress_chunk(buf, nb)
+            self.decompress_chunk(buf, nb, comp.format)
             for buf, nb in zip(comp.chunks, comp.header["chunk_nblocks"])
         ], axis=0)
 

@@ -10,9 +10,9 @@ Each scheme is a self-describing object that owns
     device)`` — the host byte layout of one aggregation-buffer chunk, the
     same bytes the reference writes.
 
-``wavelet``, ``zfpx`` and ``raw`` are ported so far; the reference's other
-schemes are named in :data:`NOT_YET_PORTED` and asking for one raises
-``ValueError``.
+``wavelet``, ``zfpx``, ``lorenzo``, ``szx`` and ``raw`` are ported so far;
+the reference's other schemes are named in :data:`NOT_YET_PORTED` and
+asking for one raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ __all__ = ["Scheme", "NOT_YET_PORTED", "register_scheme", "get_scheme",
            "torch_device"]
 
 #: schemes of the reference that this package does not implement yet
-NOT_YET_PORTED = ("lorenzo", "szx", "fpzipx", "auto")
+NOT_YET_PORTED = ("fpzipx", "auto")
 
 _REGISTRY: dict[str, "Scheme"] = {}
 
@@ -81,6 +81,14 @@ class Scheme(abc.ABC):
         bit-exact), else a bound on ``max|x - xhat|``."""
         return None
 
+    def decode_spec(self, spec: "CompressionSpec", fmt: int) -> "CompressionSpec":
+        """Spec to decode a payload written under container format ``fmt``.
+
+        Lets a scheme change its byte layout across format bumps while old
+        containers keep reading bit-exact (see szx's outlier shuffle in v2).
+        """
+        return spec
+
     @abc.abstractmethod
     def stage1(self, blocks: torch.Tensor, spec: "CompressionSpec") -> dict[str, np.ndarray]:
         """Transform of a whole (nblk, bs, bs, bs) batch -> host streams."""
@@ -122,4 +130,4 @@ def scheme_names() -> list[str]:
 
 
 # Built-in schemes self-register on import.
-from . import raw, wavelet, zfpx  # noqa: E402,F401
+from . import lorenzo, raw, szx, wavelet, zfpx  # noqa: E402,F401

@@ -27,7 +27,7 @@ the reference's float semantics, which are XLA's:
   here as a table (:data:`_EXP2_BITS`).
 
 torch on neither device flushes subnormals nor saturates, so both are
-written out here.
+written out here (:mod:`._xla`).
 """
 from __future__ import annotations
 
@@ -35,6 +35,8 @@ import functools
 
 import numpy as np
 import torch
+
+from ._xla import flush, to_int32
 
 __all__ = [
     "SCALE_BITS",
@@ -48,9 +50,6 @@ __all__ = [
 SCALE_BITS = 28          # q = round(x * 2^(SCALE_BITS - emax)); |q| <= 2^28
 _GUARD_BITS = 2          # transform error guard when converting eps -> planes
 _ZERO_EMAX = -127        # emax marker for all-zero cells
-
-_FLT_MIN = 2.0 ** -126   # smallest normal float32
-_I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -136,11 +135,6 @@ def _drop_bits(emax: torch.Tensor, eps: float) -> torch.Tensor:
     return p.clamp(0, 31)
 
 
-def _flush(x: torch.Tensor) -> torch.Tensor:
-    """Subnormal float32 values -> a zero of the same sign."""
-    return torch.where(x.abs() < _FLT_MIN, x * 0.0, x)
-
-
 #: float32 bits of the reference's ``exp2(k)`` for the integers k = -127 .. 128,
 #: as XLA evaluates it on the CPU: ``exp(k * 0.693147182)``, which misses
 #: 2^k by up to 67 ulp at 220 of these k, gives 0 at k <= -126 (flushed)
@@ -195,25 +189,15 @@ def _exp2(k: torch.Tensor) -> torch.Tensor:
     return exp2_table(k.device)[idx.long()]
 
 
-def _to_int32(v: torch.Tensor) -> torch.Tensor:
-    """Saturating float32 -> int32 of integral values, NaN -> 0."""
-    hi = v >= 2.0 ** 31
-    lo = v < -(2.0 ** 31)
-    ok = ~(hi | lo | torch.isnan(v))
-    q = torch.where(ok, v, 0.0).to(torch.int32)
-    q = torch.where(hi, _I32_MAX, q)
-    return torch.where(lo, _I32_MIN, q)
-
-
 def encode(blocks: torch.Tensor, eps: float = 1e-3
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """blocks (B, n, n, n) float32 -> (emax (B, nc) int32, q (B, nc, 64) int32)."""
-    cells = _flush(_to_cells(blocks.to(torch.float32)))       # (B, nc, 4,4,4)
+    cells = flush(_to_cells(blocks.to(torch.float32)))       # (B, nc, 4,4,4)
     amax = cells.abs().amax(dim=(-3, -2, -1))                  # (B, nc)
     _, e = torch.frexp(amax)                                   # amax = m * 2^e
     emax = torch.where(amax > 0, e, _ZERO_EMAX).to(torch.int32)
     scale = _exp2(SCALE_BITS - emax)
-    q = _to_int32(torch.round(cells * scale[..., None, None, None]))
+    q = to_int32(torch.round(cells * scale[..., None, None, None]))
     q = fwd_lift_cell(q)
     q = q.reshape(*q.shape[:-3], 64)[..., _perm(q.device, False)]
     p = _drop_bits(emax, eps)[..., None]
@@ -227,6 +211,6 @@ def decode(emax: torch.Tensor, q: torch.Tensor, eps: float = 1e-3,
     cells = q[..., _perm(q.device, True)].reshape(*q.shape[:-1], 4, 4, 4)
     cells = inv_lift_cell(cells)
     scale = _exp2(emax - SCALE_BITS)
-    out = _flush(cells.to(torch.float32) * scale[..., None, None, None])
+    out = flush(cells.to(torch.float32) * scale[..., None, None, None])
     out = torch.where((emax == _ZERO_EMAX)[..., None, None, None], 0.0, out)
     return _from_cells(out, n)

@@ -7,8 +7,10 @@ kernel, a CPU tensor runs its plain PyTorch version.
 """
 from __future__ import annotations
 
+from .lorenzo import lorenzo_decode, lorenzo_encode
 from .wavelet3d import wavelet3d_forward as wavelet_forward
 from .wavelet3d import wavelet3d_inverse as wavelet_inverse
 from .zfp_transform import zfpx_decode, zfpx_encode
 
-__all__ = ["wavelet_forward", "wavelet_inverse", "zfpx_encode", "zfpx_decode"]
+__all__ = ["wavelet_forward", "wavelet_inverse", "zfpx_encode", "zfpx_decode",
+           "lorenzo_encode", "lorenzo_decode"]

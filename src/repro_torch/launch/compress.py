@@ -3,13 +3,15 @@
 
 Compresses 3D fields — from the cavitation generator or a .npy file — into
 CZ2 containers on a torch device, reads each back, and reports CR, PSNR,
-max error and seconds per quantity (whole write and read, and per pipeline
+max error, max |x| and seconds per quantity (whole write and read, and per pipeline
 stage); or decompresses one container.
 
 Examples:
   python -m repro_torch.launch.compress --n 512 --t 9.4 --out artifacts/fields
   python -m repro_torch.launch.compress --device cpu --n 64 --out /tmp/fields
   python -m repro_torch.launch.compress --scheme zfpx --n 512 --out artifacts/zfpx
+  python -m repro_torch.launch.compress --scheme lorenzo --n 512 --out artifacts/lorenzo
+  python -m repro_torch.launch.compress --device cpu --scheme szx --n 64 --out /tmp/szx
   python -m repro_torch.launch.compress --decompress artifacts/fields/p.cz \
       --verify-against p.npy
 
@@ -107,6 +109,7 @@ def main(argv=None) -> dict | None:
             "cr": compression_ratio(x.nbytes, nbytes),
             "psnr_db": psnr(x, dec),
             "max_abs_err": float(np.max(np.abs(x - dec))),
+            "max_abs": float(np.max(np.abs(x))),
             "bytes": nbytes,
             "write_s": write_s,
             "read_s": read_s,

@@ -1,7 +1,8 @@
 """The port's slices as a whole, on the CPU: the CLI generates a cavitation
-snapshot, compresses every QoI through the wavelet pipeline (or the zfpx
-one), and each container it writes reads back in the JAX package within
-the scheme's declared bound (100 eps; 16 eps for zfpx) of the field."""
+snapshot, compresses every QoI through the wavelet pipeline (or the zfpx,
+lorenzo or szx one), and each container it writes reads back in the JAX
+package within the scheme's declared bound (100 eps; 16 eps for zfpx; eps
+for lorenzo and szx) of the field."""
 import json
 import os
 import pathlib
@@ -87,9 +88,34 @@ def test_cli_zfpx_writes_and_decompress_verifies(tmp_path, capsys):
     assert "PSNR vs reference" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("scheme", ["lorenzo", "szx"])
+def test_cli_lorenzo_szx_writes_and_decompress_verifies(tmp_path, capsys, scheme):
+    """``--scheme lorenzo|szx`` on the CPU: each container is the
+    reference's bytes for the same field and decodes within the scheme's
+    bound (eps, up to float32's spacing of max|x|), and ``--decompress
+    --verify-against`` reads one back."""
+    out = tmp_path / "fields"
+    report = compress.main(["--device", "cpu", "--scheme", scheme, "--n", "32",
+                            "--qoi", "p,a2", "--out", str(out)])
+    ref = {q: f.numpy() for q, f in
+           tcavitation_fields(TCloudConfig(n=32), 9.4, device="cpu").items()}
+    assert list(report["fields"]) == ["p", "a2"]
+    for q, r in report["fields"].items():
+        assert r["max_abs"] == float(np.max(np.abs(ref[q])))
+        assert r["max_abs_err"] <= EPS * (1 + 1e-4) + np.spacing(np.float32(r["max_abs"]))
+        assert r["cr"] > 1
+        rcont.write_field(str(tmp_path / f"{q}.ref.cz"), ref[q], RSpec(scheme=scheme))
+        assert (out / f"{q}.cz").read_bytes() == (tmp_path / f"{q}.ref.cz").read_bytes()
+    np.save(tmp_path / "p.npy", ref["p"])
+    capsys.readouterr()
+    assert compress.main(["--device", "cpu", "--decompress", str(out / "p.cz"),
+                          "--verify-against", str(tmp_path / "p.npy")]) is None
+    assert "PSNR vs reference" in capsys.readouterr().out
+
+
 def test_cli_rejects_unported_scheme(tmp_path, capsys):
     with pytest.raises(SystemExit) as exc:
-        compress.main(["--device", "cpu", "--n", "32", "--scheme", "lorenzo",
+        compress.main(["--device", "cpu", "--n", "32", "--scheme", "fpzipx",
                        "--out", str(tmp_path)])
     assert exc.value.code == 2
     assert "not yet ported" in capsys.readouterr().err

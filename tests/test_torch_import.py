@@ -83,3 +83,7 @@ def test_kernel_wrapper_runs_plain_only_on_cpu():
     q = torch.empty((2, 8, 64), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ops.zfpx_decode(emax, q, n=8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.lorenzo_encode(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.lorenzo_decode(torch.empty((2, 8, 8, 8), dtype=torch.int32, device="meta"))

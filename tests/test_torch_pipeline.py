@@ -94,7 +94,7 @@ def test_device_provenance_is_readable_by_the_reference():
     RSpec(**on_card).validate()
 
 
-@pytest.mark.parametrize("scheme", ["lorenzo", "szx", "fpzipx", "auto"])
+@pytest.mark.parametrize("scheme", ["fpzipx", "auto"])
 def test_unported_schemes_raise(scheme):
     with pytest.raises(ValueError, match=f"scheme '{scheme}' not yet ported"):
         CompressionSpec(scheme=scheme).validate()
@@ -118,3 +118,23 @@ def test_zfpx_spec_json_and_hash_match_reference():
     assert CompressionSpec.from_json(RSpec(**kw).to_json()) == CompressionSpec(**kw)
     pipe = Pipeline(CompressionSpec(**kw), device="cpu")
     assert pipe.base_header()["scheme_params"] == {"eps": 1e-2, "device": "host"}
+
+
+@pytest.mark.parametrize("scheme", ["lorenzo", "szx"])
+def test_lorenzo_szx_spec_json_and_hash_match_reference(scheme):
+    """lorenzo and szx specs rebuild in either package; header and chunk
+    bytes are held to the reference's in tests/test_torch_lorenzo.py."""
+    kw = dict(scheme=scheme, eps=1e-4, block_size=8, shuffle="bit")
+    assert CompressionSpec(**kw).validate().to_json() == RSpec(**kw).validate().to_json()
+    assert hash(CompressionSpec(**kw)) == hash(CompressionSpec(**kw))
+    assert CompressionSpec.from_json(RSpec(**kw).to_json()) == CompressionSpec(**kw)
+    pipe = Pipeline(CompressionSpec(**kw), device="cpu")
+    assert pipe.base_header()["scheme_params"] == {"eps": 1e-4, "device": "host"}
+
+
+def test_lorenzo_rejects_eps_as_the_reference():
+    for eps in (0.0, -1e-3):
+        with pytest.raises(ValueError, match="lorenzo requires eps > 0"):
+            RSpec(scheme="lorenzo", eps=eps).validate()
+        with pytest.raises(ValueError, match="lorenzo requires eps > 0"):
+            CompressionSpec(scheme="lorenzo", eps=eps).validate()
