@@ -10,17 +10,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  kernels/csrc`` with nvcc, one nvcc per source, all started
                  together, and times the build.
 3. ``parity``    each kernel against its plain PyTorch version on the card.
-                 Wavelets: w4i, w4l, w3ai; n in {8, 16, 32}; every valid
-                 level count; B = 64 blocks uniform in [-50, 50].  Forward
-                 within rtol=1e-5, atol=2e-3 (tests/test_kernels.py); inverse
-                 and round trip within rtol=1e-5, atol=1e-4 * 50
-                 (tests/test_kernels.py), except w4i at 3 levels, held to a
-                 fixed atol=3e-2: its boundary extrapolation makes
-                 coefficients of ~4e3, whose rounding the synthesis
-                 amplifies, so over 64 blocks float32 itself exceeds
-                 1e-4 * 50 there (the plain version's own round trip reads
-                 1.0e-2 on the H100, the JAX package's 5.6e-3 on the CPU).
-                 A block's output bits independent of the batch size.
+                 Wavelets: w4i, w4l, w3ai; n in {8, 16, 32, 64} at B = 64,
+                 128 at B = 4, 256 at B = 2 (the cluster kernel to n = 64,
+                 the staged one above); every valid level count; blocks
+                 uniform in [-50, 50].  Forward within rtol=1e-5, atol=2e-3
+                 (tests/test_kernels.py); inverse and round trip within
+                 rtol=1e-5, atol=1e-4 * 50 (tests/test_kernels.py), except
+                 w4i at 3 or more levels, held to a fixed atol=3e-2: its
+                 boundary extrapolation makes coefficients of ~4e3, whose
+                 rounding the synthesis amplifies, so over 64 blocks float32
+                 itself exceeds 1e-4 * 50 there (the JAX package's own
+                 round trip reads 5.6e-3 at 3 levels on the CPU).  A block's
+                 output bits independent of the batch size.
                  zfpx: n in {8, 12, 16, 32, 64}, eps in {1e-4, 1e-3, 0}, B = 64
                  blocks uniform in [-50, 50] (the last 32 scaled by powers of
                  two) with the edge cells of tests/test_torch_zfpx.py in
@@ -35,11 +36,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  (wrapping) and a subnormal 2 eps decode to the same bits.
                  Containers written on the card decode on the CPU's plain
                  path and the other way round: wavelet within the scheme's
-                 bound of 100 eps, zfpx and lorenzo to the same bits as a
+                 bound of 100 eps, with the chunk bytes of a container
+                 written on the CPU; zfpx and lorenzo to the same bits as a
                  container written on the CPU, whose chunk bytes they have.
                  An szx file written by the CLI with --device cuda records
                  "host" (szx has no kernel, as in the reference) and
                  decodes within its bound.
+   ``bits``      the wavelet kernels against the plain version on the CPU,
+                 bit for bit: each kernel's input copied to the CPU, the
+                 plain forward3d/inverse3d run there, the bits compared
+                 (the inverse takes the kernel's forward output).  Every
+                 kind; n in {8, 16, 32, 64}, every level count, B = 64;
+                 n = 128, B = 1, full depth; amplitudes 50, 1e-36 and 1e-39
+                 (subnormal intermediates and inputs); and n = 256, B = 1,
+                 w3ai at full depth and amplitude 50.  Reports per case the
+                 count of differing values and the largest difference; a
+                 difference is reported, not failed.
 4. ``main_path`` the CLI entry point, ``repro_torch.launch.compress.main``,
                  on one 512^3 cavitation snapshot at t = 9.4 us (the paper's
                  70-bubble cloud), all four QoIs, default spec (w3ai wavelet,
@@ -50,6 +62,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  after: each kernel of the path must have run.  The CLI's
                  report also splits each QoI's write and read into the
                  pipeline's stage seconds (``core.pipeline.STAGE_SECONDS``).
+   ``block64_path`` the same CLI run with ``--block-size 64`` (w3ai, 4
+                 levels, 2^3 coarse corner) on the QoI p only: the cluster
+                 kernels at n = 64 on the main path, within 100 eps, both
+                 wavelet kernels launched (counts zeroed just before).
 5. ``zfpx_path`` the same CLI run with ``--scheme zfpx`` (eps = 1e-3) on the
                  QoI p only (its four QoIs took 187-238 s, mostly zlib):
                  max |x - x^| <= 16 eps, the header records the kernel path,
@@ -60,10 +76,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  both lorenzo kernels ran (counts zeroed just before).
 7. ``kernels``   one row per ported kernel, at its path's shapes (forward,
                  zfpx and lorenzo encode B = 4096, inverse, zfpx and lorenzo
-                 decode B = 32 blocks of 32^3: one read-path chunk): its
-                 launches on its path, max |kernel - plain|, the kernel's
-                 own time per call (``ms``: its device time in a
-                 torch.profiler trace of back-to-back calls; the lorenzo
+                 decode B = 32 blocks of 32^3: one read-path chunk), and the
+                 wavelet kernels at n = 64 (forward B = 512, one QoI;
+                 inverse B = 4, one read chunk): its launches on its path
+                 (the n = 64 rows on block64_path), max |kernel - plain|
+                 (every kernel is held to its plain version bit for bit),
+                 the kernel's own time per call (``ms``: its device time in
+                 a torch.profiler trace of back-to-back calls; the lorenzo
                  decode's three passes summed), the wrapper's time per call
                  (``call_ms``: median of CUDA events around one call, the
                  host's launch path included), the plain version's time,
@@ -71,11 +90,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  3.35 TB/s; the wavelets' float32 flops over 67 TFLOP/s,
                  NVIDIA's H100 SXM figures; zfpx's and lorenzo's int32 and
                  float32 operations over 16.7 Tops/s, its 64 int32 lanes per
-                 SM).  The zfpx and lorenzo kernels are held to the plain
-                 version bit for bit.  No single PyTorch call computes any
-                 of these functions, so there is no library time.
+                 SM).  No single PyTorch call computes any of these
+                 functions, so there is no library time.
 
-The last line is ``{"ok": true, "device": {...}}``.
+The parity, bits and kernels lines carry their phase's seconds.  The last
+line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -98,8 +117,12 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 AMP = 50.0
 FWD_TOL = dict(rtol=1e-5, atol=2e-3)
 RT_TOL = dict(rtol=1e-5, atol=1e-4 * AMP)
-# w4i at 3 levels: float32's own round trip exceeds RT_TOL (see above)
+# w4i at 3 or more levels: float32's own round trip exceeds RT_TOL (see above)
 RT_TOL_W4I_L3 = dict(rtol=1e-5, atol=3e-2)
+# (n, B) of the wavelet parity cases: the cluster kernel to n = 64, the
+# staged kernel above
+PARITY_SIDES = ((8, 64), (16, 64), (32, 64), (64, 64), (128, 4), (256, 2))
+BIT_AMPLITUDES = (AMP, 1e-36, 1e-39)
 EPS = 1e-3
 ZFPX_BOUND = 16 * EPS       # the zfpx scheme's declared bound
 N_MAIN, T_MAIN = 512, 9.4
@@ -225,16 +248,16 @@ def lorenzo_bound_ms(n: int, nblocks: int, decode: bool) -> tuple[float, str]:
     return bound_ms(nbytes, ops, INT32_OPS_PER_S)
 
 
-def phase_parity(torch, wv, kern, ops) -> dict:
+def phase_parity(torch, wv, ops) -> dict:
     g = torch.Generator(device="cuda")
     g.manual_seed(12)
     worst = {"forward_vs_plain": 0.0, "inverse_vs_plain": 0.0, "round_trip": 0.0,
              "plain_round_trip": 0.0}
     per_case = {}
     for kind in wv.WAVELETS:
-        for n in kern.SUPPORTED_SIDES:
+        for n, nb in PARITY_SIDES:
             for lv in range(1, wv.max_levels(n) + 1):
-                x = torch.rand((64, n, n, n), generator=g, device="cuda") * (2 * AMP) - AMP
+                x = torch.rand((nb, n, n, n), generator=g, device="cuda") * (2 * AMP) - AMP
                 y = ops.wavelet_forward(x, kind, lv)
                 y_plain = wv.forward3d(x, kind, lv)
                 back = ops.wavelet_inverse(y, kind, lv)
@@ -242,7 +265,7 @@ def phase_parity(torch, wv, kern, ops) -> dict:
                 torch.cuda.synchronize()
                 tag = f"{kind} n={n} levels={lv}"
                 plain_rt = (wv.inverse3d(y_plain, kind, lv) - x).abs().max().item()
-                rt_tol = RT_TOL_W4I_L3 if (kind, lv) == ("w4i", 3) else RT_TOL
+                rt_tol = RT_TOL_W4I_L3 if kind == "w4i" and lv >= 3 else RT_TOL
                 errs = {"forward_vs_plain": (y - y_plain).abs().max().item(),
                         "inverse_vs_plain": (back - back_plain).abs().max().item(),
                         "round_trip": (back - x).abs().max().item(),
@@ -258,8 +281,39 @@ def phase_parity(torch, wv, kern, ops) -> dict:
                 for k, e in errs.items():
                     worst[k] = max(worst[k], e)
                 per_case[tag] = [errs[k] for k in worst]
-    return {"cases": len(per_case), "blocks_per_case": 64, "max_abs_err": worst,
+    return {"cases": len(per_case), "sides_blocks": PARITY_SIDES, "max_abs_err": worst,
             "batch_invariant": True, "per_case_err": {"columns": list(worst), **per_case}}
+
+
+def phase_bits(torch, wv, ops) -> dict:
+    """The wavelet kernels against the plain version on the CPU, bit for
+    bit: differences are counted and reported, not failed."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(90)
+    cases = [(amp, kind, n, lv, 64) for amp in BIT_AMPLITUDES for kind in wv.WAVELETS
+             for n in (8, 16, 32, 64) for lv in range(1, wv.max_levels(n) + 1)]
+    cases += [(amp, kind, 128, 5, 1) for amp in BIT_AMPLITUDES for kind in wv.WAVELETS]
+    cases.append((AMP, "w3ai", 256, 6, 1))
+    per_case, differing, worst = {}, 0, 0.0
+    for amp, kind, n, lv, nb in cases:
+        x = (torch.rand((nb, n, n, n), generator=g, device="cuda") * 2 - 1) * amp
+        y = ops.wavelet_forward(x, kind, lv)
+        z = ops.wavelet_inverse(y, kind, lv)
+        x_cpu, y_cpu, z_cpu = x.cpu(), y.cpu(), z.cpu()
+        row = []
+        for got, want in ((y_cpu, wv.forward3d(x_cpu, kind, lv)),
+                          (z_cpu, wv.inverse3d(y_cpu, kind, lv))):
+            diff = got.view(torch.int32) != want.view(torch.int32)
+            row += [int(diff.sum()), _max_abs_diff(got, want) if diff.any() else 0.0]
+        check(all(torch.isfinite(t).all() for t in (y_cpu, z_cpu)), f"bits: non-finite output {n}")
+        per_case[f"{kind} n={n} L={lv} B={nb} amp={amp:g}"] = row
+        differing += row[0] + row[2]
+        worst = max(worst, row[1], row[3])
+    return {"cases": len(per_case), "bit_equal_cases": sum(r[0] + r[2] == 0 for r in
+                                                           per_case.values()),
+            "differing_values": differing, "max_abs_diff": worst,
+            "per_case": {"columns": ["fwd_differing", "fwd_max_abs_diff", "inv_differing",
+                                     "inv_max_abs_diff"], **per_case}}
 
 
 def zfpx_batch(torch, g, n: int):
@@ -376,9 +430,9 @@ def phase_interop(tmp: str) -> dict:
 
     f = cavitation_fields(CloudConfig(n=64), T_MAIN, device="cpu")["p"].numpy()
     spec = CompressionSpec()
-    errs = {}
+    errs, paths = {}, {}
     for wdev, rdev in (("cuda", "cpu"), ("cpu", "cuda")):
-        path = os.path.join(tmp, f"interop_{wdev}.cz")
+        path = paths[wdev] = os.path.join(tmp, f"interop_{wdev}.cz")
         container.write_field(path, f, spec, device=wdev)
         check(_recorded_device(container, path) == ("jax" if wdev == "cuda" else "host"),
               f"device provenance {wdev}")
@@ -386,9 +440,11 @@ def phase_interop(tmp: str) -> dict:
         errs[f"{wdev}->{rdev}"] = float(np.max(np.abs(dec - f)))
         check(dec.shape == f.shape and np.isfinite(dec).all(), f"interop {wdev}->{rdev}")
         check(errs[f"{wdev}->{rdev}"] <= 100 * EPS, f"interop error {wdev}->{rdev}")
+    check(list(container.iter_compressed(paths["cuda"]))
+          == list(container.iter_compressed(paths["cpu"])),
+          "wavelet chunks written on the card differ from the CPU's")
 
     zspec = CompressionSpec(scheme="zfpx")
-    paths = {}
     for wdev in ("cuda", "cpu"):
         paths[wdev] = os.path.join(tmp, f"interop_zfpx_{wdev}.cz")
         container.write_field(paths[wdev], f, zspec, device=wdev)
@@ -436,7 +492,8 @@ def phase_interop(tmp: str) -> dict:
           "szx written on the card does not record host")
     serr = report["fields"]["p"]["max_abs_err"]
     check(serr <= lorenzo_bound(report["fields"]["p"]["max_abs"]), f"szx interop error {serr}")
-    return {"wavelet_max_abs_err": errs, "zfpx_chunks_identical": True,
+    return {"wavelet_max_abs_err": errs, "wavelet_chunks_identical": True,
+            "zfpx_chunks_identical": True,
             "zfpx_decodes_identical": True, "zfpx_max_abs_err": zerr,
             "lorenzo_chunks_identical": True, "lorenzo_decodes_identical": True,
             "lorenzo_max_abs_err": lerr, "szx_recorded_device": "host",
@@ -496,13 +553,17 @@ def _bit_equal(torch, got, want) -> bool:
 def kernel_rows(torch, wv, zf, sz, ops, launches: dict) -> list[dict]:
     """One row per ported kernel at its path's shapes: the wavelet forward,
     zfpx and lorenzo encode over a QoI's 4096 blocks, the inverse, zfpx and
-    lorenzo decode over one read-path chunk of 32 blocks."""
+    lorenzo decode over one read-path chunk of 32 blocks; and the wavelet
+    kernels at n = 64 (block64_path): the forward over a QoI's 512 blocks,
+    the inverse over one 4-block chunk."""
     g = torch.Generator(device="cuda")
     g.manual_seed(34)
     kind, n, lv = "w3ai", 32, 3   # the main path's spec
     nblocks = (N_MAIN // n) ** 3
     x = torch.rand((nblocks, n, n, n), generator=g, device="cuda") * (2 * AMP) - AMP
     chunk = ops.wavelet_forward(x, kind, lv)[:32].contiguous()
+    x64 = x.view(-1, 64, 64, 64)  # 512 blocks of 64^3 (4 levels), as random
+    chunk64 = ops.wavelet_forward(x64, kind, 4)[:4].contiguous()
     emax, q = ops.zfpx_encode(x, EPS)
     emax, q = emax[:32].contiguous(), q[:32].contiguous()
     res = ops.lorenzo_encode(x, EPS)[:32].contiguous()
@@ -510,38 +571,42 @@ def kernel_rows(torch, wv, zf, sz, ops, launches: dict) -> list[dict]:
                         "src/repro_torch/kernels/csrc/zfp_transform.cu",
                         "src/repro_torch/kernels/csrc/lorenzo.cu")
 
-    def fwd_tol(arg) -> float:  # tests/test_kernels.py's forward tolerance
-        return FWD_TOL["atol"] + FWD_TOL["rtol"] * arg.abs().max().item()
-
     table = [
-        ("wavelet3d_forward", wsrc, "src/repro/kernels/wavelet3d.py:139", "wavelet3d_kernel",
+        ("wavelet3d_forward", wsrc, "src/repro/kernels/wavelet3d.py:139",
+         "wavelet3d_cluster_kernel",
          lambda: ops.wavelet_forward(x, kind, lv), lambda: wv.forward3d(x, kind, lv),
-         fwd_tol(x), 20, nblocks, wavelet_bound_ms(kind, n, lv, nblocks)),
-        ("wavelet3d_inverse", wsrc, "src/repro/kernels/wavelet3d.py:145", "wavelet3d_kernel",
+         20, nblocks, wavelet_bound_ms(kind, n, lv, nblocks)),
+        ("wavelet3d_inverse", wsrc, "src/repro/kernels/wavelet3d.py:145",
+         "wavelet3d_cluster_kernel",
          lambda: ops.wavelet_inverse(chunk, kind, lv), lambda: wv.inverse3d(chunk, kind, lv),
-         fwd_tol(chunk), 50, 32, wavelet_bound_ms(kind, n, lv, 32)),
+         50, 32, wavelet_bound_ms(kind, n, lv, 32)),
+        ("wavelet3d_forward_n64", wsrc, "src/repro/kernels/wavelet3d.py:139",
+         "wavelet3d_cluster_kernel",
+         lambda: ops.wavelet_forward(x64, kind, 4), lambda: wv.forward3d(x64, kind, 4),
+         20, 512, wavelet_bound_ms(kind, 64, 4, 512)),
+        ("wavelet3d_inverse_n64", wsrc, "src/repro/kernels/wavelet3d.py:145",
+         "wavelet3d_cluster_kernel",
+         lambda: ops.wavelet_inverse(chunk64, kind, 4), lambda: wv.inverse3d(chunk64, kind, 4),
+         50, 4, wavelet_bound_ms(kind, 64, 4, 4)),
         ("zfpx_encode", zsrc, "src/repro/kernels/zfp_transform.py:56", "zfpx_encode_kernel",
          lambda: ops.zfpx_encode(x, EPS), lambda: zf.encode(x, EPS),
-         None, 20, nblocks, zfpx_bound_ms(n, nblocks, decode=False)),
+         20, nblocks, zfpx_bound_ms(n, nblocks, decode=False)),
         ("zfpx_decode", zsrc, "src/repro/kernels/zfp_transform.py:82", "zfpx_decode_kernel",
          lambda: ops.zfpx_decode(emax, q, EPS, n), lambda: zf.decode(emax, q, EPS, n),
-         None, 50, 32, zfpx_bound_ms(n, 32, decode=True)),
+         50, 32, zfpx_bound_ms(n, 32, decode=True)),
         ("lorenzo_encode", lsrc, "src/repro/kernels/lorenzo.py:57", "lorenzo_encode_kernel",
          lambda: ops.lorenzo_encode(x, EPS), lambda: sz.encode(x, EPS),
-         None, 20, nblocks, lorenzo_bound_ms(n, nblocks, decode=False)),
+         20, nblocks, lorenzo_bound_ms(n, nblocks, decode=False)),
         ("lorenzo_decode", lsrc, "src/repro/kernels/lorenzo.py:63", "lorenzo_decode_scan",
          lambda: ops.lorenzo_decode(res, EPS), lambda: sz.decode(res, EPS),
-         None, 50, 32, lorenzo_bound_ms(n, 32, decode=True)),
+         50, 32, lorenzo_bound_ms(n, 32, decode=True)),
     ]
     per_call = {"lorenzo_decode": 3}  # its three passes, each a CUDA kernel
     rows = []
-    for name, src, replaces, symbol, call, plain, tol, reps, blocks, (b_ms, b_by) in table:
+    for name, src, replaces, symbol, call, plain, reps, blocks, (b_ms, b_by) in table:
         got, want = call(), plain()
         err = _max_abs_diff(got, want)
-        if tol is None:  # zfpx and lorenzo: bit for bit
-            check(_bit_equal(torch, got, want), f"{name} vs plain at the main shape: not bit-exact")
-        else:
-            check(err <= tol, f"{name} vs plain at the main shape: {err}")
+        check(_bit_equal(torch, got, want), f"{name} vs plain at its path's shape: not bit-exact")
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err,
@@ -596,15 +661,24 @@ def main() -> int:
     os.makedirs(tmp)
     counts = [wkern.LAUNCHES, zkern.LAUNCHES, lkern.LAUNCHES]
     try:
-        parity = phase_parity(torch, wv, wkern, ops)
+        t0 = time.perf_counter()
+        parity = phase_parity(torch, wv, ops)
         parity["zfpx"] = phase_zfpx_parity(torch, zf, ops)
         parity["lorenzo"] = phase_lorenzo_parity(torch, sz, ops)
         parity["interop"] = phase_interop(tmp)
-        emit({"phase": "parity", **parity})
+        emit({"phase": "parity", "seconds": time.perf_counter() - t0, **parity})
+        t0 = time.perf_counter()
+        bits = phase_bits(torch, wv, ops)
+        emit({"phase": "bits", "seconds": time.perf_counter() - t0, **bits})
         main_path = run_cli_path(tmp, "main_path", [], "CompressionSpec() defaults",
                                  lambda _m: 100 * EPS,
                                  ("wavelet3d_forward", "wavelet3d_inverse"), counts)
         emit({"phase": "main_path", **main_path})
+        block64_path = run_cli_path(tmp, "block64_path", ["--block-size", "64"],
+                                    "CompressionSpec(block_size=64): w3ai, eps 1e-3, 4 "
+                                    "levels, byte shuffle, zlib", lambda _m: 100 * EPS,
+                                    ("wavelet3d_forward", "wavelet3d_inverse"), counts, ("p",))
+        emit({"phase": "block64_path", **block64_path})
         zfpx_path = run_cli_path(tmp, "zfpx_path", ["--scheme", "zfpx"],
                                  "CompressionSpec(scheme='zfpx'): eps 1e-3, 32^3 blocks, "
                                  "byte shuffle, zlib", lambda _m: ZFPX_BOUND,
@@ -619,9 +693,12 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's launches on its own path
     launches = {k: main_path["launches"][k] for k in wkern.LAUNCHES}
+    launches.update({f"{k}_n64": block64_path["launches"][k] for k in wkern.LAUNCHES})
     launches.update({k: zfpx_path["launches"][k] for k in zkern.LAUNCHES})
     launches.update({k: lorenzo_path["launches"][k] for k in lkern.LAUNCHES})
+    t0 = time.perf_counter()
     rows = kernel_rows(torch, wv, zf, sz, ops, launches)
+    emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     print(card, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

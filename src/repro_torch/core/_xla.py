@@ -11,15 +11,22 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["FLT_MIN", "flush", "to_int32"]
+__all__ = ["FLT_MIN", "flush", "flush_", "to_int32"]
 
 FLT_MIN = 2.0 ** -126   # smallest normal float32
 _I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
 
 
 def flush(x: torch.Tensor) -> torch.Tensor:
-    """Subnormal float32 values -> a zero of the same sign."""
-    return torch.where(x.abs() < FLT_MIN, x * 0.0, x)
+    """Subnormal float32 values -> a zero of the same sign: ``x`` times 1.0
+    or 0.0 (three passes over ``x``, where a ``where`` takes four)."""
+    return x * x.abs().ge_(FLT_MIN)
+
+
+def flush_(x: torch.Tensor) -> torch.Tensor:
+    """:func:`flush` in place, for a tensor the caller owns (a fresh result:
+    no new allocation)."""
+    return x.mul_(x.abs().ge_(FLT_MIN))
 
 
 def to_int32(v: torch.Tensor) -> torch.Tensor:

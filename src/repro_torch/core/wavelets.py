@@ -27,6 +27,8 @@ import functools
 import numpy as np
 import torch
 
+from ._xla import flush, flush_
+
 __all__ = [
     "WAVELETS",
     "max_levels",
@@ -99,43 +101,76 @@ def _predict_table(kind: str, m: int) -> tuple[np.ndarray, np.ndarray]:
 # 1D lifting steps along the last axis
 # ---------------------------------------------------------------------------
 
-def _predict(s: torch.Tensor, kind: str) -> torch.Tensor:
-    idx, W = _predict_table(kind, s.shape[-1])
-    idx_t = torch.from_numpy(idx.astype(np.int64)).to(s.device)
-    w_t = torch.from_numpy(W.astype(np.float32)).to(s.device, s.dtype)
-    return (s[..., idx_t] * w_t).sum(-1)
+# The reference's host path runs each jnp operation eagerly under XLA on the
+# CPU, which reads subnormal operands as zero and flushes subnormal results
+# to a zero of the same sign.  So every operand and every result of the
+# arithmetic below is flushed; copies (slices, cat, stack) are not, and pass
+# a subnormal through as XLA's do.  A value is flushed where it enters the
+# arithmetic as read (fe, fo, fs, fd below); the helpers take flushed
+# operands and flush their result, so no value is flushed twice (flushing
+# is idempotent).  The weights and the constants 0.25, 0.5 and 2.0 are
+# normal.  The CUDA kernels do the same, operation by operation.
+
+def _add(a: torch.Tensor, b) -> torch.Tensor:
+    return flush_(a + b)
 
 
-def _lift_update(d: torch.Tensor) -> torch.Tensor:
+def _sub(a: torch.Tensor, b) -> torch.Tensor:
+    return flush_(a - b)
+
+
+def _mul(a: torch.Tensor, b) -> torch.Tensor:
+    return flush_(a * b)
+
+
+def _predict(fs: torch.Tensor, kind: str) -> torch.Tensor:
+    """Predicted odd values from the flushed coarse values ``fs``: the taps'
+    products summed left to right from +0.0, as XLA's reduction sums them
+    (a -0.0 first product gives +0.0)."""
+    m = fs.shape[-1]
+    idx, W = _predict_table(kind, m)
+    taps = idx.shape[1]
+    w_t = torch.from_numpy(np.ascontiguousarray(W.T, dtype=np.float32)).to(fs.device)
+    acc = None
+    for j in range(taps):
+        # fs[..., idx[:, j]]: row i reads fs[clip(i - 1, 0, m - taps) + j]
+        tap = torch.cat([fs[..., j:j + 1], fs[..., j:j + m - taps + 1],
+                         fs[..., m - taps + j:m - taps + j + 1].expand(
+                             *fs.shape[:-1], taps - 2)], dim=-1)
+        p = _mul(tap, w_t[j])
+        acc = p + 0.0 if acc is None else _add(acc, p)
+    return acc
+
+
+def _lift_update(fd: torch.Tensor) -> torch.Tensor:
     """s-update term (d_{i-1} + d_i)/4, one-sided at the left boundary."""
-    dm1 = torch.cat([d[..., :1], d[..., :-1]], dim=-1)  # d_{-1} := d_0
-    return (dm1 + d) * 0.25
+    dm1 = torch.cat([fd[..., :1], fd[..., :-1]], dim=-1)  # d_{-1} := d_0
+    return _mul(_add(dm1, fd), 0.25)
 
 
 def _fwd_step_last(x: torch.Tensor, kind: str) -> torch.Tensor:
     e, o = x[..., 0::2], x[..., 1::2]
+    fo = flush(o)
     if kind in ("w4i", "w4l"):
-        s = e
-        d = o - _predict(s, kind)
+        s = e                  # the even samples' bits, unflushed
+        fs = flush(s)
+        d = _sub(fo, _predict(fs, kind))
         if kind == "w4l":
-            s = s + _lift_update(d)
+            s = _add(fs, _lift_update(d))
     else:  # w3ai
-        s = (e + o) * 0.5
-        d = o - _predict(s, kind)
+        s = _mul(_add(flush(e), fo), 0.5)
+        d = _sub(fo, _predict(s, kind))
     return torch.cat([s, d], dim=-1)
 
 
 def _inv_step_last(x: torch.Tensor, kind: str) -> torch.Tensor:
     m = x.shape[-1] // 2
     s, d = x[..., :m], x[..., m:]
-    if kind in ("w4i", "w4l"):
-        if kind == "w4l":
-            s = s - _lift_update(d)
-        o = d + _predict(s, kind)
-        e = s
-    else:  # w3ai
-        o = d + _predict(s, kind)
-        e = 2.0 * s - o
+    fs, fd = flush(s), flush(d)
+    if kind == "w4l":
+        s = fs = _sub(fs, _lift_update(fd))
+    o = _add(fd, _predict(fs, kind))
+    e = _sub(_mul(fs, 2.0), o) if kind == "w3ai" else s
     return torch.stack([e, o], dim=-1).reshape(*x.shape[:-1], 2 * m)
 
 

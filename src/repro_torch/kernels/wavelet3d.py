@@ -6,21 +6,27 @@ the multi-level separable lifting DWT of ``(B, n, n, n)`` float32 blocks,
 Mallat ``[s | d]`` layout, for w4i, w4l and w3ai.
 
 The kernels are hand-written CUDA C++ (``csrc/wavelet3d.cu``), built at
-first use by :mod:`._build`.  One CTA holds one whole block in shared
-memory and lifts it line by line as a 3- or 4-tap stencil with the
-one-sided boundary weights of ``wavelets._predict_table``.  What bounds
-them on the card is device-memory traffic: each block is read once and
-written once (4 n^3 bytes each way) for about 14 flops per element, so the
-design keeps every level's intermediate in shared memory and moves the
-block through HBM in 16-byte vectors exactly once each way.
+first use by :mod:`._build`, for every power-of-two block side n >= 8, the
+reference's range.  Up to n = 64 a thread-block cluster holds one block
+in shared memory, a slab of planes per CTA (1, 1, 4 and 16 CTAs at n = 8,
+16, 32, 64), and lifts it line by line as a 3- or 4-tap stencil with the
+one-sided boundary weights of ``wavelets._predict_table``; lines that
+cross the slabs go through distributed shared memory.  From n = 128 a block does not fit in a
+cluster, and a staged kernel lifts one axis of one level per launch
+through device memory.  What bounds them on the card is device-memory
+traffic: up to n = 64 each block is read once and written once (4 n^3
+bytes each way) for about 14 flops per element.
 
-Each block is computed by one CTA alone, so a block's output bits do not
-depend on the batch it came in (the Pallas kernel's do).
+The kernels compute what the plain version computes, operation by
+operation, with XLA's subnormal flush, so on the card they give the CPU's
+bits.  Each block is computed by its own CTAs alone, so a block's output
+bits do not depend on the batch it came in (the Pallas kernel's do).
 
 Each wrapper routes by the tensor's device: a CPU tensor goes to the plain
 PyTorch version (:func:`repro_torch.core.wavelets.forward3d` /
 ``inverse3d``); a CUDA tensor launches the kernel or raises.  ``LAUNCHES``
-counts kernel launches per wrapper, and nothing else.
+counts, per wrapper, the calls that launched the kernels (one launch, or
+one per level and axis from n = 128), and nothing else.
 """
 from __future__ import annotations
 
@@ -33,11 +39,7 @@ from repro_torch.core import wavelets as wv
 
 from . import _build
 
-__all__ = ["wavelet3d_forward", "wavelet3d_inverse", "LAUNCHES",
-           "SUPPORTED_SIDES"]
-
-#: block sides the kernels take (a 64^3 block does not fit in shared memory)
-SUPPORTED_SIDES = (8, 16, 32)
+__all__ = ["wavelet3d_forward", "wavelet3d_inverse", "LAUNCHES"]
 
 #: kernel launches per wrapper; set to 0 to count one run's launches
 LAUNCHES = {"wavelet3d_forward": 0, "wavelet3d_inverse": 0}
@@ -79,7 +81,10 @@ def tap_weights(kind: str, n: int, levels: int) -> np.ndarray:
         if not np.array_equal(idx, start[:, None] + np.arange(taps)):
             raise RuntimeError(f"{kind} m={m}: stencil starts differ from the kernel's")
         parts.append(W.astype(np.float32).reshape(-1))
-    return np.concatenate(parts)
+    w = np.concatenate(parts)
+    if np.any((w != 0) & (np.abs(w) < np.finfo(np.float32).tiny)):
+        raise RuntimeError(f"{kind} n={n}: a subnormal weight (the kernel reads weights unflushed)")
+    return w
 
 
 def _device_weights(kind: str, n: int, levels: int, device) -> torch.Tensor:
@@ -98,8 +103,8 @@ def _launch(name: str, blocks: torch.Tensor, kind: str,
     if blocks.dtype != torch.float32:
         raise TypeError(f"{name}: expected float32 blocks, got {blocks.dtype}")
     n = blocks.shape[-1]
-    if n not in SUPPORTED_SIDES:
-        raise ValueError(f"{name}: block side {n} not in {SUPPORTED_SIDES}")
+    if n < 8 or n & (n - 1):
+        raise ValueError(f"{name}: block side {n} is not a power of two >= 8")
     if kind not in _KINDS:
         raise ValueError(f"{name}: unknown wavelet {kind!r}")
     levels = wv.default_levels(n, levels)
