@@ -26,14 +26,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  blocks uniform in [-50, 50] (the last 32 scaled by powers of
                  two) with the edge cells of tests/test_torch_zfpx.py in
                  blocks 1-5; emax, q and the decoded bits equal, bit for bit.
-                 lorenzo: n in {6, 8, 10, 16, 32, 64}, eps in {1e-4, 1e-3,
-                 2e-7} (2e-7: |q| > 2^24), B = 64 blocks uniform in [-50, 50]
-                 with the traps of tests/test_torch_lorenzo.py in blocks
-                 1-4 (amplitude 3e4, NaN and inf, subnormals and zeros,
-                 values on the half-grid); residuals and decoded bits equal,
-                 bit for bit, and the round trip of the plain blocks within
-                 eps * (1 + 1e-4) + spacing(50); residuals over all of int32
-                 (wrapping) and a subnormal 2 eps decode to the same bits.
+                 lorenzo: n in {4, 6, 7, 8, 10, 16, 24, 25, 32, 33, 64} at
+                 B = 64 and n = 128 at B = 2 (the decode's cluster kernel to
+                 n = 64, its staged path above), eps in {1e-4, 1e-3, 2e-7} (2e-7:
+                 |q| > 2^24), blocks uniform in [-50, 50], at B = 64 with the
+                 traps of tests/test_torch_lorenzo.py in blocks 1-4
+                 (amplitude 3e4, NaN and inf, subnormals and zeros, values
+                 on the half-grid); residuals and decoded bits equal, bit for
+                 bit, the decode also of the first 1, 3 and 32 blocks, and
+                 the round trip of the plain blocks within eps * (1 + 1e-4)
+                 + spacing(50); residuals over all of int32 (wrapping) at
+                 n = 16, 32 and 64, B = 64, and a subnormal 2 eps decode to
+                 the same bits.
                  Containers written on the card decode on the CPU's plain
                  path and the other way round: wavelet within the scheme's
                  bound of 100 eps, with the chunk bytes of a container
@@ -51,7 +55,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  (subnormal intermediates and inputs); and n = 256, B = 1,
                  w3ai at full depth and amplitude 50.  Reports per case the
                  count of differing values and the largest difference; a
-                 difference is reported, not failed.
+                 difference is reported, not failed.  Then the lorenzo
+                 decode at n = 32, B = 32 and n = 64, B = 4 against the CPU's
+                 plain version, on residuals over all of int32 and from an
+                 encode: a differing value fails.
 4. ``main_path`` the CLI entry point, ``repro_torch.launch.compress.main``,
                  on one 512^3 cavitation snapshot at t = 9.4 us (the paper's
                  70-bubble cloud), all four QoIs, default spec (w3ai wavelet,
@@ -76,14 +83,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  both lorenzo kernels ran (counts zeroed just before).
 7. ``kernels``   one row per ported kernel, at its path's shapes (forward,
                  zfpx and lorenzo encode B = 4096, inverse, zfpx and lorenzo
-                 decode B = 32 blocks of 32^3: one read-path chunk), and the
+                 decode B = 32 blocks of 32^3: one read-path chunk), the
                  wavelet kernels at n = 64 (forward B = 512, one QoI;
-                 inverse B = 4, one read chunk): its launches on its path
-                 (the n = 64 rows on block64_path), max |kernel - plain|
-                 (every kernel is held to its plain version bit for bit),
-                 the kernel's own time per call (``ms``: its device time in
-                 a torch.profiler trace of back-to-back calls; the lorenzo
-                 decode's three passes summed), the wrapper's time per call
+                 inverse B = 4, one read chunk), and the lorenzo decode at
+                 n = 64 (B = 4, a read chunk) and the wavelet staged kernel
+                 at n = 128 (B = 1, 5 levels): its launches on its path (the
+                 n = 64 wavelet rows on block64_path; the lorenzo n = 64 and
+                 wavelet n = 128 rows: the launches at that side counted per
+                 side over every path's run, 0 while no path runs it),
+                 max |kernel - plain| (every kernel is held
+                 to its plain version bit for bit), the kernel's own time per
+                 call (``ms``: its device time in a torch.profiler trace of
+                 back-to-back calls; the staged wavelet kernel's 15 launches
+                 summed), the lorenzo decode's design as its library
+                 reports it (cluster or staged, planes per CTA, CTAs per
+                 block), the wrapper's time per call
                  (``call_ms``: median of CUDA events around one call, the
                  host's launch path included), the plain version's time,
                  and the least time the card could take (bytes over
@@ -122,6 +136,12 @@ RT_TOL_W4I_L3 = dict(rtol=1e-5, atol=3e-2)
 # (n, B) of the wavelet parity cases: the cluster kernel to n = 64, the
 # staged kernel above
 PARITY_SIDES = ((8, 64), (16, 64), (32, 64), (64, 64), (128, 4), (256, 2))
+# (n, B) of the lorenzo parity cases: the decode's cluster kernel to n = 64
+# (whole blocks per CTA to 16, slabs above; 24: a short last slab; 7, 25
+# and 33: odd sides, loaded without bulk copies, 25 and 33 in clusters of 5
+# and 11), the staged path at 128
+LORENZO_PARITY_SIDES = ((4, 64), (6, 64), (7, 64), (8, 64), (10, 64), (16, 64), (24, 64),
+                        (25, 64), (32, 64), (33, 64), (64, 64), (128, 2))
 BIT_AMPLITUDES = (AMP, 1e-36, 1e-39)
 EPS = 1e-3
 ZFPX_BOUND = 16 * EPS       # the zfpx scheme's declared bound
@@ -177,23 +197,27 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
 def kernel_ms(fn, kernel: str, reps: int, per_call: int = 1) -> float:
     """The kernel's own device time per call, in ms, from a torch.profiler
     trace of ``reps`` back-to-back calls of ``fn``: every CUDA kernel whose
-    name holds ``kernel`` counts, ``per_call`` of them in each call (the
-    lorenzo decode's three passes).  The trace can miss a launch at its
-    start, so the mean is over those seen."""
+    name holds ``kernel`` counts, ``per_call`` of them in each call (a
+    staged path's launches).  The trace can miss a launch at its
+    start, so the mean is over those seen; a trace that saw fewer than half
+    the launches is taken again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us, count = 0.0, 0
-    for ev in prof.key_averages():
-        if kernel in ev.key:
-            us += ev.device_time_total
-            count += ev.count
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, count = 0.0, 0
+        for ev in prof.key_averages():
+            if kernel in ev.key:
+                us += ev.device_time_total
+                count += ev.count
+        if reps // 2 <= count / per_call <= reps and us > 0:
+            break
     check(reps // 2 <= count / per_call <= reps and us > 0,
           f"profiler saw {count} launches of {kernel} ({us} us) of {reps} x {per_call}")
     return us / 1e3 / (count / per_call)
@@ -285,9 +309,12 @@ def phase_parity(torch, wv, ops) -> dict:
             "batch_invariant": True, "per_case_err": {"columns": list(worst), **per_case}}
 
 
-def phase_bits(torch, wv, ops) -> dict:
+def phase_bits(torch, wv, sz, ops) -> dict:
     """The wavelet kernels against the plain version on the CPU, bit for
-    bit: differences are counted and reported, not failed."""
+    bit: differences are counted and reported, not failed.  Then the
+    lorenzo decode at its read chunks (n = 32, B = 32; n = 64, B = 4), on
+    residuals over all of int32 and from an encode: integer-exact, so a
+    difference fails."""
     g = torch.Generator(device="cuda")
     g.manual_seed(90)
     cases = [(amp, kind, n, lv, 64) for amp in BIT_AMPLITUDES for kind in wv.WAVELETS
@@ -309,11 +336,22 @@ def phase_bits(torch, wv, ops) -> dict:
         per_case[f"{kind} n={n} L={lv} B={nb} amp={amp:g}"] = row
         differing += row[0] + row[2]
         worst = max(worst, row[1], row[3])
+    lorenzo = {}
+    for n, nb in ((32, 32), (64, 4)):
+        x = torch.rand((nb, n, n, n), generator=g, device="cuda") * (2 * AMP) - AMP
+        full = torch.randint(-2 ** 31, 2 ** 31, (nb, n, n, n), generator=g, device="cuda",
+                             dtype=torch.int64).to(torch.int32)
+        for source, r in (("int32", full), ("encode", ops.lorenzo_encode(x, EPS))):
+            got, want = ops.lorenzo_decode(r, EPS).cpu(), sz.decode(r.cpu(), EPS)
+            differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            lorenzo[f"lorenzo_decode n={n} B={nb} {source}"] = differ
+            check(differ == 0, f"bits: lorenzo decode n={n} {source}: {differ} values differ")
     return {"cases": len(per_case), "bit_equal_cases": sum(r[0] + r[2] == 0 for r in
                                                            per_case.values()),
             "differing_values": differing, "max_abs_diff": worst,
             "per_case": {"columns": ["fwd_differing", "fwd_max_abs_diff", "inv_differing",
-                                     "inv_max_abs_diff"], **per_case}}
+                                     "inv_max_abs_diff"], **per_case},
+            "lorenzo_differing_values": lorenzo}
 
 
 def zfpx_batch(torch, g, n: int):
@@ -364,12 +402,14 @@ def phase_zfpx_parity(torch, zf, ops) -> dict:
             "edge_emax": ZFPX_EDGE_EMAX, "round_trip_max_abs_err": worst}
 
 
-def lorenzo_batch(torch, g, n: int, eps: float):
-    """B = 64 blocks of side n uniform in [-50, 50], with the traps of
-    tests/test_torch_lorenzo.py: block 1 at amplitude 3e4 (the FMA), block
-    2 with NaN and +-inf, block 3 subnormal with zeros, block 4 on the
-    half-grid of 2 eps."""
-    x = torch.rand((64, n, n, n), generator=g, device="cuda") * (2 * AMP) - AMP
+def lorenzo_batch(torch, g, n: int, eps: float, nb: int = 64):
+    """``nb`` blocks of side n uniform in [-50, 50]; when nb = 64, with the
+    traps of tests/test_torch_lorenzo.py: block 1 at amplitude 3e4 (the
+    FMA), block 2 with NaN and +-inf, block 3 subnormal with zeros, block 4
+    on the half-grid of 2 eps."""
+    x = torch.rand((nb, n, n, n), generator=g, device="cuda") * (2 * AMP) - AMP
+    if nb < 64:
+        return x
     x[1] *= 600.0
     flat = x[2].view(-1)
     flat[::7] = float("nan")
@@ -384,32 +424,42 @@ def lorenzo_batch(torch, g, n: int, eps: float):
 
 def phase_lorenzo_parity(torch, sz, ops) -> dict:
     """The lorenzo kernels against their plain version on the card, bit for
-    bit; the round trip of the plain blocks within the reference's bound."""
+    bit; the round trip of the plain blocks within the reference's bound.
+    The decode also at B = 1, 3 and 32 (a CTA holding fewer blocks than its
+    share, a cluster per block)."""
     g = torch.Generator(device="cuda")
     g.manual_seed(78)
     cases, worst = 0, {}
-    for n in (6, 8, 10, 16, 32, 64):
+    for n, nb in LORENZO_PARITY_SIDES:
         for eps in (1e-4, 1e-3, 2e-7):
-            tag = f"lorenzo n={n} eps={eps}"
-            x = lorenzo_batch(torch, g, n, eps)
+            tag = f"lorenzo n={n} B={nb} eps={eps}"
+            x = lorenzo_batch(torch, g, n, eps, nb)
             r, r_plain = ops.lorenzo_encode(x, eps), sz.encode(x, eps)
             d, d_plain = ops.lorenzo_decode(r, eps), sz.decode(r_plain, eps)
             torch.cuda.synchronize()
             check(_bit_equal(torch, r, r_plain), f"{tag}: residuals differ from the plain one")
             check(_bit_equal(torch, d, d_plain), f"{tag}: decoded bits differ from the plain one")
-            err = (d[5:] - x[5:]).abs().max().item()
+            for b in (1, 3, 32):
+                if b < nb:
+                    check(_bit_equal(torch, ops.lorenzo_decode(r[:b], eps), d_plain[:b]),
+                          f"{tag}: decode of the first {b} blocks differs from the plain one")
+            plain = slice(5, None) if nb == 64 else slice(None)  # the blocks without traps
+            err = (d[plain] - x[plain]).abs().max().item()
             bound = lorenzo_bound(AMP, eps)
             check(err <= bound, f"{tag}: round trip {err} > {bound}")
             worst[str(eps)] = max(worst.get(str(eps), 0.0), err)
             cases += 1
-    # wrapping sums over all of int32, and a subnormal 2 eps (decodes to zeros)
-    for eps in (1e-3, 5e-39):
-        r = torch.randint(-2 ** 31, 2 ** 31, (64, 16, 16, 16), generator=g, device="cuda",
-                          dtype=torch.int64).to(torch.int32)
-        d = ops.lorenzo_decode(r, eps)
-        check(_bit_equal(torch, d, sz.decode(r, eps)), f"lorenzo decode eps={eps}: int32 range")
-        cases += 1
-    return {"cases": cases, "blocks_per_case": 64, "bit_exact": True,
+    # wrapping sums over all of int32 where slabs carry into each other, and
+    # a subnormal 2 eps (decodes to zeros)
+    for n in (16, 32, 64):
+        for eps in (1e-3, 5e-39):
+            r = torch.randint(-2 ** 31, 2 ** 31, (64, n, n, n), generator=g, device="cuda",
+                              dtype=torch.int64).to(torch.int32)
+            d = ops.lorenzo_decode(r, eps)
+            check(_bit_equal(torch, d, sz.decode(r, eps)),
+                  f"lorenzo decode n={n} eps={eps}: int32 range")
+            cases += 1
+    return {"cases": cases, "sides_blocks": LORENZO_PARITY_SIDES, "bit_exact": True,
             "round_trip_max_abs_err_by_eps": worst}
 
 
@@ -501,10 +551,11 @@ def phase_interop(tmp: str) -> dict:
 
 
 def run_cli_path(tmp: str, name: str, scheme_args: list[str], spec: str, bound,
-                 kernels: tuple[str, ...], counts: list[dict],
+                 kernels: tuple[str, ...], counts: list[dict], sides: list[dict],
                  qois: tuple[str, ...] = ("p", "rho", "E", "a2")) -> dict:
     """One 512^3 snapshot through the CLI on the card, every launch count
-    zeroed just before and read just after; each of ``kernels`` must run.
+    (``counts``: per wrapper; ``sides``: per wrapper and block side) zeroed
+    just before and read just after; each of ``kernels`` must run.
     ``bound(max_abs)`` is the scheme's bound for a QoI of that max |x|."""
     from repro_torch.core import container
     from repro_torch.launch import compress
@@ -513,12 +564,15 @@ def run_cli_path(tmp: str, name: str, scheme_args: list[str], spec: str, bound,
     for c in counts:
         for k in c:
             c[k] = 0
+    for c in sides:
+        c.clear()
     t0 = time.perf_counter()
     report = compress.main(["--source", "cavitation", "--n", str(N_MAIN),
                             "--t", str(T_MAIN), "--qoi", ",".join(qois),
                             "--device", "cuda", "--out", out, *scheme_args])
     total_s = time.perf_counter() - t0
     launches = {k: v for c in counts for k, v in c.items()}
+    by_side = {f"{k} n={n}": v for c in sides for (k, n), v in sorted(c.items())}
     for k in kernels:
         check(launches[k] > 0, f"{k} never launched on the {name} path")
     fields = report["fields"]
@@ -532,7 +586,7 @@ def run_cli_path(tmp: str, name: str, scheme_args: list[str], spec: str, bound,
     shutil.rmtree(out, ignore_errors=True)
     return {"n": N_MAIN, "t_us": T_MAIN, "spec": spec, "qois": list(qois),
             "generate_s": report["generate_s"], "total_s": total_s,
-            "fields": fields, "launches": launches}
+            "fields": fields, "launches": launches, "launches_by_side": by_side}
 
 
 def _max_abs_diff(got, want) -> float:
@@ -550,12 +604,15 @@ def _bit_equal(torch, got, want) -> bool:
     return torch.equal(got, want)
 
 
-def kernel_rows(torch, wv, zf, sz, ops, launches: dict) -> list[dict]:
+def kernel_rows(torch, wv, zf, sz, ops, lkern, launches: dict) -> list[dict]:
     """One row per ported kernel at its path's shapes: the wavelet forward,
     zfpx and lorenzo encode over a QoI's 4096 blocks, the inverse, zfpx and
-    lorenzo decode over one read-path chunk of 32 blocks; and the wavelet
+    lorenzo decode over one read-path chunk of 32 blocks; the wavelet
     kernels at n = 64 (block64_path): the forward over a QoI's 512 blocks,
-    the inverse over one 4-block chunk."""
+    the inverse over one 4-block chunk; and the lorenzo decode at n = 64
+    over a 4-block chunk and the wavelet staged kernel at n = 128 (B = 1,
+    5 levels), sides that no path runs yet.  The lorenzo decode's rows also
+    carry the design its library launches at their side."""
     g = torch.Generator(device="cuda")
     g.manual_seed(34)
     kind, n, lv = "w3ai", 32, 3   # the main path's spec
@@ -564,9 +621,12 @@ def kernel_rows(torch, wv, zf, sz, ops, launches: dict) -> list[dict]:
     chunk = ops.wavelet_forward(x, kind, lv)[:32].contiguous()
     x64 = x.view(-1, 64, 64, 64)  # 512 blocks of 64^3 (4 levels), as random
     chunk64 = ops.wavelet_forward(x64, kind, 4)[:4].contiguous()
+    x128 = x.view(-1, 128, 128, 128)[:1].contiguous()
+    chunk128 = ops.wavelet_forward(x128, kind, 5)
     emax, q = ops.zfpx_encode(x, EPS)
     emax, q = emax[:32].contiguous(), q[:32].contiguous()
     res = ops.lorenzo_encode(x, EPS)[:32].contiguous()
+    res64 = ops.lorenzo_encode(x64[:4].contiguous(), EPS)
     wsrc, zsrc, lsrc = ("src/repro_torch/kernels/csrc/wavelet3d.cu",
                         "src/repro_torch/kernels/csrc/zfp_transform.cu",
                         "src/repro_torch/kernels/csrc/lorenzo.cu")
@@ -597,11 +657,25 @@ def kernel_rows(torch, wv, zf, sz, ops, launches: dict) -> list[dict]:
         ("lorenzo_encode", lsrc, "src/repro/kernels/lorenzo.py:57", "lorenzo_encode_kernel",
          lambda: ops.lorenzo_encode(x, EPS), lambda: sz.encode(x, EPS),
          20, nblocks, lorenzo_bound_ms(n, nblocks, decode=False)),
-        ("lorenzo_decode", lsrc, "src/repro/kernels/lorenzo.py:63", "lorenzo_decode_scan",
+        ("lorenzo_decode", lsrc, "src/repro/kernels/lorenzo.py:63", "lorenzo_decode_cluster",
          lambda: ops.lorenzo_decode(res, EPS), lambda: sz.decode(res, EPS),
          50, 32, lorenzo_bound_ms(n, 32, decode=True)),
+        ("lorenzo_decode_n64", lsrc, "src/repro/kernels/lorenzo.py:63", "lorenzo_decode_cluster",
+         lambda: ops.lorenzo_decode(res64, EPS), lambda: sz.decode(res64, EPS),
+         50, 4, lorenzo_bound_ms(64, 4, decode=True)),
+        ("wavelet3d_forward_n128", wsrc, "src/repro/kernels/wavelet3d.py:139",
+         "wavelet3d_staged_kernel",
+         lambda: ops.wavelet_forward(x128, kind, 5), lambda: wv.forward3d(x128, kind, 5),
+         20, 1, wavelet_bound_ms(kind, 128, 5, 1)),
+        ("wavelet3d_inverse_n128", wsrc, "src/repro/kernels/wavelet3d.py:145",
+         "wavelet3d_staged_kernel",
+         lambda: ops.wavelet_inverse(chunk128, kind, 5), lambda: wv.inverse3d(chunk128, kind, 5),
+         20, 1, wavelet_bound_ms(kind, 128, 5, 1)),
     ]
-    per_call = {"lorenzo_decode": 3}  # its three passes, each a CUDA kernel
+    # CUDA kernels per call: the staged wavelet kernel runs once per level and axis
+    per_call = {"wavelet3d_forward_n128": 15, "wavelet3d_inverse_n128": 15}
+    designs = {"lorenzo_decode": lkern.decode_design(n),
+               "lorenzo_decode_n64": lkern.decode_design(64)}
     rows = []
     for name, src, replaces, symbol, call, plain, reps, blocks, (b_ms, b_by) in table:
         got, want = call(), plain()
@@ -614,7 +688,7 @@ def kernel_rows(torch, wv, zf, sz, ops, launches: dict) -> list[dict]:
             "call_ms": median_ms(call, reps),
             "plain_ms": median_ms(plain, 5, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "blocks": blocks,
+            "blocks": blocks, **designs.get(name, {}),
         })
     return rows
 
@@ -660,6 +734,7 @@ def main() -> int:
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     counts = [wkern.LAUNCHES, zkern.LAUNCHES, lkern.LAUNCHES]
+    sides = [wkern.LAUNCHES_BY_SIDE, lkern.LAUNCHES_BY_SIDE]
     try:
         t0 = time.perf_counter()
         parity = phase_parity(torch, wv, ops)
@@ -668,26 +743,28 @@ def main() -> int:
         parity["interop"] = phase_interop(tmp)
         emit({"phase": "parity", "seconds": time.perf_counter() - t0, **parity})
         t0 = time.perf_counter()
-        bits = phase_bits(torch, wv, ops)
+        bits = phase_bits(torch, wv, sz, ops)
         emit({"phase": "bits", "seconds": time.perf_counter() - t0, **bits})
         main_path = run_cli_path(tmp, "main_path", [], "CompressionSpec() defaults",
                                  lambda _m: 100 * EPS,
-                                 ("wavelet3d_forward", "wavelet3d_inverse"), counts)
+                                 ("wavelet3d_forward", "wavelet3d_inverse"), counts, sides)
         emit({"phase": "main_path", **main_path})
         block64_path = run_cli_path(tmp, "block64_path", ["--block-size", "64"],
                                     "CompressionSpec(block_size=64): w3ai, eps 1e-3, 4 "
                                     "levels, byte shuffle, zlib", lambda _m: 100 * EPS,
-                                    ("wavelet3d_forward", "wavelet3d_inverse"), counts, ("p",))
+                                    ("wavelet3d_forward", "wavelet3d_inverse"), counts, sides,
+                                    ("p",))
         emit({"phase": "block64_path", **block64_path})
         zfpx_path = run_cli_path(tmp, "zfpx_path", ["--scheme", "zfpx"],
                                  "CompressionSpec(scheme='zfpx'): eps 1e-3, 32^3 blocks, "
                                  "byte shuffle, zlib", lambda _m: ZFPX_BOUND,
-                                 ("zfpx_encode", "zfpx_decode"), counts, ZFPX_PATH_QOIS)
+                                 ("zfpx_encode", "zfpx_decode"), counts, sides,
+                                 ZFPX_PATH_QOIS)
         emit({"phase": "zfpx_path", **zfpx_path})
         lorenzo_path = run_cli_path(tmp, "lorenzo_path", ["--scheme", "lorenzo"],
                                     "CompressionSpec(scheme='lorenzo'): eps 1e-3, 32^3 "
                                     "blocks, byte shuffle, zlib", lorenzo_bound,
-                                    ("lorenzo_encode", "lorenzo_decode"), counts)
+                                    ("lorenzo_encode", "lorenzo_decode"), counts, sides)
         emit({"phase": "lorenzo_path", **lorenzo_path})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -696,8 +773,15 @@ def main() -> int:
     launches.update({f"{k}_n64": block64_path["launches"][k] for k in wkern.LAUNCHES})
     launches.update({k: zfpx_path["launches"][k] for k in zkern.LAUNCHES})
     launches.update({k: lorenzo_path["launches"][k] for k in lkern.LAUNCHES})
+    # the rows at sides of their own: launches at that side, summed over
+    # every path's run (each counted from 0)
+    runs = (main_path, block64_path, zfpx_path, lorenzo_path)
+    for row, key in (("lorenzo_decode_n64", "lorenzo_decode n=64"),
+                     ("wavelet3d_forward_n128", "wavelet3d_forward n=128"),
+                     ("wavelet3d_inverse_n128", "wavelet3d_inverse n=128")):
+        launches[row] = sum(run["launches_by_side"].get(key, 0) for run in runs)
     t0 = time.perf_counter()
-    rows = kernel_rows(torch, wv, zf, sz, ops, launches)
+    rows = kernel_rows(torch, wv, zf, sz, ops, lkern, launches)
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     print(card, flush=True)
     emit({"kernels": rows})

@@ -10,10 +10,16 @@ float32 blocks onto the 2*eps grid fused with the 3D Lorenzo residual
 The kernels are hand-written CUDA C++ (``csrc/lorenzo.cu``), built at first
 use by :mod:`._build`.  Encode runs one thread per column of a block and
 quantizes each value of the 2x2 corner it needs again, rather than sharing
-q through memory; decode runs three passes, one thread per line along each
-axis, through global memory.  Lines are independent, so any ``n >= 1``
-works, 64 included.  What bounds them on the card is device-memory
-traffic: 4 bytes read and 4 written per element.
+q through memory.  Decode is one launch whose design follows n alone: up to
+n = 64, each block is loaded once into shared memory (TMA bulk copies),
+scanned there along all three axes and dequantized as it is stored, by one
+CTA that holds whole blocks (n <= 16), or by a thread-block cluster whose
+CTAs each hold a slab of planes and add the totals of the slabs below
+through distributed shared memory (n = 32: 8 CTAs, n = 64: 16); above 64, a
+staged path of three passes through global memory.  Any ``n >= 1`` works;
+:func:`decode_design` says which design a side gets.
+What bounds them on the card is device-memory traffic: 4 bytes read and 4
+written per element.
 
 The kernels hold the plain version's bits exactly, and so the reference's
 on the CPU: they take the same float32 ``inv`` and ``two``
@@ -25,11 +31,13 @@ int32 arithmetic, exact in any order.
 Each wrapper routes by the tensor's device: a CPU tensor goes to the plain
 PyTorch version (:func:`repro_torch.core.szx.encode` / ``decode``); a CUDA
 tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel launches
-per wrapper (decode's three passes are one launch of the decode), and
-nothing else.
+per wrapper, one per call (the staged path's three passes count as one
+launch of the decode), and nothing else; ``LAUNCHES_BY_SIDE`` counts the
+same launches per (wrapper, block side).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -38,10 +46,13 @@ from repro_torch.core import szx
 
 from . import _build
 
-__all__ = ["lorenzo_encode", "lorenzo_decode", "LAUNCHES"]
+__all__ = ["lorenzo_encode", "lorenzo_decode", "decode_design", "LAUNCHES",
+           "LAUNCHES_BY_SIDE"]
 
 #: kernel launches per wrapper; set to 0 to count one run's launches
 LAUNCHES = {"lorenzo_encode": 0, "lorenzo_decode": 0}
+#: the same launches per (wrapper, block side); clear it to count one run's
+LAUNCHES_BY_SIDE: collections.Counter = collections.Counter()
 
 _LIB: ctypes.CDLL | None = None
 
@@ -56,6 +67,9 @@ def _lib() -> ctypes.CDLL:
         lib.lorenzo_decode_launch.argtypes = [ptr, ptr, ctypes.c_longlong, ctypes.c_int,
                                               ctypes.c_float, ptr]
         for fn in (lib.lorenzo_encode_launch, lib.lorenzo_decode_launch):
+            fn.restype = ctypes.c_int
+        for fn in (lib.lorenzo_decode_planes_per_cta, lib.lorenzo_decode_cluster_ctas):
+            fn.argtypes = [ctypes.c_int]
             fn.restype = ctypes.c_int
         lib.lorenzo_error_string.argtypes = [ctypes.c_int]
         lib.lorenzo_error_string.restype = ctypes.c_char_p
@@ -87,6 +101,7 @@ def _launch(name: str, src: torch.Tensor, dtype: torch.dtype, out_dtype: torch.d
         msg = _lib().lorenzo_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
     LAUNCHES[name] += 1
+    LAUNCHES_BY_SIDE[name, src.shape[-1]] += 1
     return out
 
 
@@ -103,3 +118,15 @@ def lorenzo_decode(residuals: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
         return szx.decode(residuals, eps)
     return _launch("lorenzo_decode", residuals, torch.int32, torch.float32,
                    szx.grid(eps)[1])
+
+
+def decode_design(n: int) -> dict:
+    """The design :func:`lorenzo_decode` launches on the card at block side
+    n, as the kernel library chooses it: the cluster kernel with its planes
+    per CTA and CTAs per block, or the staged path."""
+    lib = _lib()
+    planes = lib.lorenzo_decode_planes_per_cta(n)
+    if planes == 0:
+        return {"design": "staged", "planes_per_cta": None, "cluster_ctas": None}
+    return {"design": "cluster", "planes_per_cta": planes,
+            "cluster_ctas": lib.lorenzo_decode_cluster_ctas(n)}

@@ -26,10 +26,12 @@ Each wrapper routes by the tensor's device: a CPU tensor goes to the plain
 PyTorch version (:func:`repro_torch.core.wavelets.forward3d` /
 ``inverse3d``); a CUDA tensor launches the kernel or raises.  ``LAUNCHES``
 counts, per wrapper, the calls that launched the kernels (one launch, or
-one per level and axis from n = 128), and nothing else.
+one per level and axis from n = 128), and nothing else;
+``LAUNCHES_BY_SIDE`` counts the same calls per (wrapper, block side).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import numpy as np
@@ -39,10 +41,12 @@ from repro_torch.core import wavelets as wv
 
 from . import _build
 
-__all__ = ["wavelet3d_forward", "wavelet3d_inverse", "LAUNCHES"]
+__all__ = ["wavelet3d_forward", "wavelet3d_inverse", "LAUNCHES", "LAUNCHES_BY_SIDE"]
 
 #: kernel launches per wrapper; set to 0 to count one run's launches
 LAUNCHES = {"wavelet3d_forward": 0, "wavelet3d_inverse": 0}
+#: the same launches per (wrapper, block side); clear it to count one run's
+LAUNCHES_BY_SIDE: collections.Counter = collections.Counter()
 
 _KINDS = {"w4i": 0, "w4l": 1, "w3ai": 2}
 _WEIGHTS: dict[tuple, torch.Tensor] = {}
@@ -126,6 +130,7 @@ def _launch(name: str, blocks: torch.Tensor, kind: str,
         msg = _lib().wavelet3d_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
     LAUNCHES[name] += 1
+    LAUNCHES_BY_SIDE[name, n] += 1
     return out
 
 

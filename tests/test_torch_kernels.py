@@ -90,3 +90,13 @@ def test_kernels_build_into_the_checkout_or_a_user_cache(tmp_path, monkeypatch):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     assert mod.BUILD_DIR == tmp_path / "cache" / "repro_torch_kernels"
+
+
+def test_wavelet_wrappers_count_no_launch_on_the_cpu():
+    """The counters count kernel launches only: a CPU call runs the plain
+    version and leaves both the per-wrapper and the per-side count as
+    they were."""
+    before, by_side = dict(tkern.LAUNCHES), dict(tkern.LAUNCHES_BY_SIDE)
+    x = torch.from_numpy(np.random.default_rng(4).uniform(-1, 1, (2, 8, 8, 8)).astype(np.float32))
+    tkern.wavelet3d_inverse(tkern.wavelet3d_forward(x, "w3ai", 1), "w3ai", 1)
+    assert tkern.LAUNCHES == before and dict(tkern.LAUNCHES_BY_SIDE) == by_side

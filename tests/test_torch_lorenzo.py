@@ -42,6 +42,7 @@ from repro_torch.core.pipeline import CompressionSpec, Pipeline
 from repro_torch.core.schemes import get_scheme
 from repro_torch.kernels import lorenzo as tkern
 from repro_torch.kernels import ops as tops
+from repro_torch.launch import lorenzo_decode_designs as designs
 
 try:
     from hypothesis import given, settings, strategies as st
@@ -237,6 +238,25 @@ def test_lorenzo_fwd_inv_identity_wrapping():
     _assert_same_bits(inv.numpy(), np.asarray(rszx.lorenzo_inv(q)))
 
 
+@pytest.mark.parametrize("source", ["int32", "encode"])
+@pytest.mark.parametrize("n", [64, 128])
+def test_decode_bit_exact_where_the_card_designs_split(n, source):
+    """On the card the decode is a cluster kernel up to n = 64 and a staged
+    path above: at 64 and 128 the plain decode, the kernels' oracle, equals
+    the Pallas kernel in interpret mode bit for bit, on residuals over all
+    of int32 and on the residuals of an encode."""
+    if source == "int32":
+        r = np.random.default_rng(n).integers(-(2 ** 31), 2 ** 31, (1, n, n, n)).astype(np.int32)
+    else:
+        x = _blocks(1, n, seed=n)
+        r = np.array(rszx.encode(x, eps=1e-3))  # writable: torch.from_numpy warns otherwise
+        _assert_same_bits(tops.lorenzo_encode(torch.from_numpy(x), eps=1e-3).numpy(), r)
+    d = tops.lorenzo_decode(torch.from_numpy(r), eps=1e-3).numpy()
+    _assert_same_bits(d, np.asarray(rops.lorenzo_decode(r, eps=1e-3, interpret=True)))
+    if source == "encode":
+        assert np.max(np.abs(d - x)) <= _bound(x, 1e-3)
+
+
 @pytest.mark.parametrize("absmax,eps", [(50.0, 1e-7), (1e3, 0.0), (1e3, -1.0), (1.0, 1e-9)])
 def test_check_eps_raises_as_the_reference(absmax, eps):
     with pytest.raises(ValueError) as want:
@@ -377,7 +397,29 @@ def test_encode_wrapper_refuses_what_the_kernel_does_not_take(shape, dtype, err,
     ((2, 8, 4, 8), torch.int32, ValueError, r"\(B, n, n, n\)"),
     ((2, 8, 8, 8), torch.int64, TypeError, "int32"),
     ((2, 5, 5, 5), torch.int32, ValueError, "CUDA"),
+    ((1, 128, 128, 128), torch.int32, ValueError, "CUDA"),  # the staged path's side too
 ])
 def test_decode_wrapper_refuses_what_the_kernel_does_not_take(shape, dtype, err, match):
     with pytest.raises(err, match=match):
         tkern.lorenzo_decode(torch.empty(shape, dtype=dtype, device="meta"))
+
+
+def test_wrappers_count_no_launch_on_the_cpu():
+    """The counters count kernel launches only: a CPU call runs the plain
+    version and leaves both the per-wrapper and the per-side count as
+    they were."""
+    before, by_side = dict(tkern.LAUNCHES), dict(tkern.LAUNCHES_BY_SIDE)
+    x = torch.from_numpy(_blocks(2, 8, seed=5))
+    tkern.lorenzo_decode(tkern.lorenzo_encode(x))
+    assert tkern.LAUNCHES == before and dict(tkern.LAUNCHES_BY_SIDE) == by_side
+
+
+@pytest.mark.parametrize("name", sorted(designs.VARIANTS))
+def test_decode_design_variants_patch_the_kernel_source(name):
+    """The design study builds each variant from the decode's source: each
+    replacement finds its text exactly once, and only ``kept`` is the
+    source unchanged."""
+    src, got = designs.SOURCE.read_text(), designs.variant_source(name)
+    assert (got == src) == (name == "kept")
+    for _old, new in designs.VARIANTS[name]:
+        assert new in got
