@@ -78,9 +78,49 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  max |x - x^| <= 16 eps, the header records the kernel path,
                  and both zfpx kernels ran (counts zeroed just before).
 6. ``lorenzo_path`` the same CLI run with ``--scheme lorenzo`` (eps = 1e-3),
-                 all four QoIs: max |x - x^| <= eps * (1 + 1e-4) +
-                 spacing(max|x|), the header records the kernel path, and
-                 both lorenzo kernels ran (counts zeroed just before).
+                 on the QoI p only (its four took 285 s, 95% zlib): max
+                 |x - x^| <= eps * (1 + 1e-4) + spacing(max|x|), the header
+                 records the kernel path, and both lorenzo kernels ran
+                 (counts zeroed just before).
+   ``fpzipx``    fpzipx (no kernel: integer torch ops on the card) against
+                 the CPU: the lossless round trip on the card bit-exact on
+                 the edge values (NaN payload 0x7fc12345, +-0, 1e-40, +-inf,
+                 +-FLT_MAX) and on 32 random +-50 blocks of 32^3; the
+                 deltas of random bit patterns over all of uint32, and the
+                 decode of random int32 deltas (wrapping sums), equal to the
+                 CPU's bits; chunk bytes equal to the CPU's at precisions 32
+                 and 16.
+   ``auto_interop`` ``--scheme auto`` (default target abs = eps) written on
+                 the card and on the CPU in this run: a 128^3 sub-volume of
+                 the 512^3 p snapshot (32^3 blocks, 2 chunks), and
+                 tests/data/golden_auto_input.npy under the fixture's spec
+                 (8^3 blocks, 2 KiB buffer: one block per chunk).  The card's
+                 and the CPU's files are byte-identical, footer
+                 (``chunk_schemes``) included; the fixture's is the committed
+                 tests/data/cz2_auto.cz.  The card decodes cz2_auto.cz to
+                 cz2_auto.decoded.npy bit for bit.
+   ``auto_path`` the CLI with ``--scheme auto --target abs=1e-3`` on the
+                 512^3 p (32^3 blocks, 4 MiB chunks): each chunk's trials
+                 encode and decode a 4-block sample under every other
+                 scheme, the winner encodes the chunk.  Every one of the six
+                 kernels must launch (counts zeroed just before); max
+                 |x - x^| <= 1e-3 * (1 + 1e-6) + spacing(max|x|), the
+                 trials' own slack; the header records "host", as the
+                 reference's auto does.  Prints the footer's chunk mix, the
+                 stage seconds, and the tuner's series (``cz_tune_*``).
+   ``auto_trials`` the tuner's trials of every chunk of the same 512^3 p
+                 (target abs=1e-3, 32^3 blocks, 4 MiB chunks: 128 chunks),
+                 run on the card and on the CPU.  Every kernel call of the
+                 card's trials is recorded and held to its plain version on
+                 the same inputs, bit for bit: the trials' shapes (4-block
+                 samples) and eps (zfpx 6.25e-5, lorenzo 1e-3, wavelet w3ai
+                 at 3 levels).  Each chunk's trials (scheme, eps, nbytes,
+                 max_err, psnr, admissible, error) and its ranking equal the
+                 CPU's.
+   A kernel's launch count on a path is its wrapper's
+   ``cz_kernel_calls_total{device="cuda"}`` series from repro_torch.obs,
+   which the wrapper adds one to where its launch succeeded and nowhere
+   else (exact under threads); each path sets it to 0 just before its run.
 7. ``kernels``   one row per ported kernel, at its path's shapes (forward,
                  zfpx and lorenzo encode B = 4096, inverse, zfpx and lorenzo
                  decode B = 32 blocks of 32^3: one read-path chunk), the
@@ -105,7 +145,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  NVIDIA's H100 SXM figures; zfpx's and lorenzo's int32 and
                  float32 operations over 16.7 Tops/s, its 64 int32 lanes per
                  SM).  No single PyTorch call computes any of these
-                 functions, so there is no library time.
+                 functions, so there is no library time.  Each row also
+                 carries its launches on auto_path (``auto_path_launches``).
 
 The parity, bits and kernels lines carry their phase's seconds.  The last
 line is ``{"ok": true, "device": {...}}``.
@@ -148,6 +189,20 @@ ZFPX_BOUND = 16 * EPS       # the zfpx scheme's declared bound
 N_MAIN, T_MAIN = 512, 9.4
 KERNEL_SOURCES = ("wavelet3d", "zfp_transform", "lorenzo")
 ZFPX_PATH_QOIS = ("p",)     # one QoI: its four took 187-238 s, mostly zlib
+LORENZO_PATH_QOIS = ("p",)  # one QoI: its four took 285 s, 95% zlib
+AUTO_TARGET = 1e-3          # auto_path's target, abs=1e-3
+# each kernel row's label in cz_kernel_calls_total
+KERNEL_LABELS = {"wavelet3d_forward": "wavelet_forward", "wavelet3d_inverse": "wavelet_inverse",
+                 "zfpx_encode": "zfpx_encode", "zfpx_decode": "zfpx_decode",
+                 "lorenzo_encode": "lorenzo_encode", "lorenzo_decode": "lorenzo_decode"}
+
+
+def auto_bound(max_abs: float) -> float:
+    """What the tuner's trials allow a target abs=1e-3: the target plus one
+    float32 ulp at max |x| (repro_torch/tune/trial.py)."""
+    import numpy as np
+
+    return AUTO_TARGET * (1 + 1e-6) + float(np.spacing(np.float32(max_abs)))
 
 
 def lorenzo_bound(max_abs: float, eps: float = EPS) -> float:
@@ -550,43 +605,291 @@ def phase_interop(tmp: str) -> dict:
             "szx_max_abs_err": serr}
 
 
+FLT_MAX_BITS = 0x7F7FFFFF
+# the lossless round trip's edge values, as float32 bit patterns: a NaN
+# payload, +0, -0, 1e-40 (subnormal), +-inf, +-FLT_MAX
+FPZIPX_EDGES = (0x7FC12345, 0x00000000, 0x80000000, 0x000116C2, 0x7F800000, 0xFF800000,
+                FLT_MAX_BITS, 0x80000000 | FLT_MAX_BITS)
+
+
+def phase_fpzipx(tmp: str) -> dict:
+    """fpzipx on the card against the CPU: lossless round trip bit-exact on
+    the edge values and on random +-50 blocks; deltas over all of uint32 and
+    the decode's wrapping int32 sums equal to the CPU's; chunk bytes equal
+    to the CPU's at precisions 32 and 16."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import container
+    from repro_torch.core import fpzipx as fpz
+    from repro_torch.core.pipeline import CompressionSpec
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(23)
+    x = torch.rand((32, 32, 32, 32), generator=g, device="cuda") * (2 * AMP) - AMP
+    edges = torch.tensor(np.array(FPZIPX_EDGES, np.uint32).view(np.int32), device="cuda")
+    x.view(torch.int32).view(-1)[: 64 * edges.numel()] = edges.repeat(64)
+    back = fpz.decode(fpz.encode(x))
+    check(torch.equal(back.view(torch.int32), x.view(torch.int32)),
+          "fpzipx: the lossless round trip on the card is not bit-exact")
+    bits = torch.randint(-2 ** 31, 2 ** 31, (8, 32, 32, 32), generator=g, device="cuda",
+                         dtype=torch.int64).to(torch.int32)
+    cases = 0
+    for p in (32, 16, 8):
+        d = fpz.encode(bits.view(torch.float32), precision=p)
+        check(torch.equal(d.cpu(), fpz.encode(bits.cpu().view(torch.float32), precision=p)),
+              f"fpzipx deltas at precision {p} differ from the CPU's")
+        cases += 1
+    check(torch.equal(fpz.decode(bits).cpu().view(torch.int32),
+                      fpz.decode(bits.cpu()).view(torch.int32)),
+          "fpzipx decode (wrapping int32 sums) differs from the CPU's")
+    f = x.cpu().numpy()  # the 32 blocks, edges included, 4 chunks of 8
+    nbytes = {}
+    for p in (32, 16):
+        spec = CompressionSpec(scheme="fpzipx", precision=p, buffer_bytes=1 << 20)
+        paths = {}
+        for dev in ("cuda", "cpu"):
+            paths[dev] = os.path.join(tmp, f"fpzipx_{p}_{dev}.cz")
+            container.write_field(paths[dev], f, spec, device=dev)
+        check(list(container.iter_compressed(paths["cuda"]))
+              == list(container.iter_compressed(paths["cpu"])),
+              f"fpzipx chunks at precision {p} written on the card differ from the CPU's")
+        dec = container.read_field(paths["cpu"], device="cuda")
+        if p == 32:
+            check(np.array_equal(dec.view(np.int32), f.view(np.int32)),
+                  "fpzipx container round trip on the card is not bit-exact")
+        nbytes[p] = os.path.getsize(paths["cuda"])
+    return {"edges": [f"0x{b:08x}" for b in FPZIPX_EDGES], "round_trip_bit_exact": True,
+            "delta_cases": cases, "decode_wraps_as_cpu": True,
+            "chunks_identical_precisions": [32, 16], "container_bytes": nbytes}
+
+
+def phase_auto_interop(tmp: str, p512) -> dict:
+    """``auto`` written on the card and on the CPU: byte-identical files, the
+    footer's chunk_schemes included, for a 128^3 sub-volume of the 512^3 p
+    and for the golden fixture's input under its spec (which must give the
+    committed cz2_auto.cz); the card decodes cz2_auto.cz bit for bit."""
+    import numpy as np
+
+    from repro_torch.core import container
+    from repro_torch.core.pipeline import CompressionSpec
+
+    data = os.path.join(ROOT, "tests", "data")
+    sub = p512[192:320, 192:320, 192:320].contiguous().cpu().numpy()
+    cases = {"p_128": (sub, CompressionSpec(scheme="auto")),
+             "golden_auto_input": (np.load(os.path.join(data, "golden_auto_input.npy")),
+                                   CompressionSpec(scheme="auto", eps=1e-3, block_size=8,
+                                                   buffer_bytes=1 << 11))}
+    out = {}
+    for name, (f, spec) in cases.items():
+        files = {}
+        for dev in ("cuda", "cpu"):
+            path = os.path.join(tmp, f"auto_{name}_{dev}.cz")
+            container.write_field(path, f, spec, device=dev)
+            with open(path, "rb") as fh:
+                files[dev] = fh.read()
+        check(files["cuda"] == files["cpu"],
+              f"auto {name}: the file written on the card differs from the CPU's")
+        with open(path, "rb") as fh:
+            header = container._read_header(fh)[0]
+        dec = container.read_field(path, device="cuda")
+        err = float(np.max(np.abs(dec - f)))
+        check(err <= EPS * (1 + 1e-6) + float(np.spacing(np.float32(np.abs(f).max()))),
+              f"auto {name}: max error {err}")
+        out[name] = {"bytes": len(files["cuda"]), "chunk_schemes": header["chunk_schemes"],
+                     "max_abs_err": err}
+    with open(os.path.join(data, "cz2_auto.cz"), "rb") as fh:
+        check(fh.read() == files["cuda"], "auto: the card's fixture file is not cz2_auto.cz")
+    dec = container.read_field(os.path.join(data, "cz2_auto.cz"), device="cuda")
+    want = np.load(os.path.join(data, "cz2_auto.decoded.npy"))
+    check(dec.dtype == want.dtype and np.array_equal(dec.view(np.int32), want.view(np.int32)),
+          "auto: cz2_auto.cz decoded on the card differs from cz2_auto.decoded.npy")
+    return {"cases": out, "card_equals_cpu": True, "fixture_equals_cz2_auto": True,
+            "cz2_auto_decodes_bit_exact": True}
+
+
+def phase_auto_trials(torch, wv, zf, sz, ops, p512) -> dict:
+    """The tuner's trials of every chunk of the 512^3 p, as auto_path makes
+    them, on the card and on the CPU.  Each kernel call of the card's trials
+    is recorded (inputs and output copied at the call) and held to its plain
+    version on the same inputs, bit for bit; each chunk's trials and ranking
+    must equal the CPU's."""
+    import threading
+
+    from repro_torch.core import blocks as blk
+    from repro_torch.core.pipeline import CompressionSpec, Pipeline
+    from repro_torch.tune import bound, trial
+
+    plain = {"wavelet_forward": wv.forward3d, "wavelet_inverse": wv.inverse3d,
+             "zfpx_encode": zf.encode, "zfpx_decode": zf.decode,
+             "lorenzo_encode": sz.encode, "lorenzo_decode": sz.decode}
+    real = {name: getattr(ops, name) for name in plain}
+    calls, lock = [], threading.Lock()
+
+    def copy(v):
+        if isinstance(v, tuple):
+            return tuple(copy(t) for t in v)
+        return v.clone() if isinstance(v, torch.Tensor) else v
+
+    def recording(name):
+        def call(*a, **k):
+            out = real[name](*a, **k)
+            with lock:
+                calls.append((name, copy(a), copy(k), copy(out)))
+            return out
+        return call
+
+    def sig(a, k) -> str:
+        vals = [list(v.shape) if isinstance(v, torch.Tensor) else v for v in a]
+        return json.dumps([vals, {kk: v for kk, v in sorted(k.items())}])
+
+    def scores(d) -> list:
+        return [(t.scheme, t.eps, t.nbytes, t.max_err, t.psnr, t.admissible, t.error)
+                for t in d.trials]
+
+    spec = CompressionSpec(scheme="auto", extra={"target": f"abs={AUTO_TARGET:g}"})
+    target = bound.target_from_spec(spec)
+    blocks = blk.blockify(p512, spec.block_size)
+    host = blocks.cpu().numpy()
+    bpc = Pipeline(spec, device="cpu").blocks_per_chunk
+    checked = {name: 0 for name in plain}
+    inputs = {name: set() for name in plain}
+    winners = {}
+    for lo in range(0, host.shape[0], bpc):
+        ci = lo // bpc
+        for name in plain:
+            setattr(ops, name, recording(name))
+        try:
+            card = trial.run_trials(blocks[lo:lo + bpc], spec, target, host[lo:lo + bpc])
+        finally:
+            for name, fn in real.items():
+                setattr(ops, name, fn)
+        chunk_cpu = torch.from_numpy(host[lo:lo + bpc])
+        cpu = trial.run_trials(chunk_cpu, spec, target, host[lo:lo + bpc])
+        for name, a, k, out in calls:
+            check(_bit_equal(torch, out, plain[name](*a, **k)),
+                  f"auto trials, chunk {ci}: {name} at {sig(a, k)} differs from its "
+                  "plain version")
+            checked[name] += 1
+            inputs[name].add(sig(a, k))
+        calls.clear()
+        check(scores(card) == scores(cpu),
+              f"auto trials, chunk {ci}: the card's trials {scores(card)} differ from "
+              f"the CPU's {scores(cpu)}")
+        check([(c.scheme, c.eps) for c in card.ranked] == [(c.scheme, c.eps) for c in cpu.ranked],
+              f"auto trials, chunk {ci}: the card's ranking differs from the CPU's")
+        w = f"{card.winner.scheme} eps={card.winner.eps:g}"
+        winners[w] = winners.get(w, 0) + 1
+    check(all(checked.values()), f"auto trials: a kernel never ran: {checked}")
+    return {"chunks": host.shape[0] // bpc, "target": str(target),
+            "kernel_calls_bit_exact": checked,
+            "kernel_inputs": {k: sorted(v) for k, v in inputs.items()},
+            "trials_equal_cpu": True, "winners": winners}
+
+
+def _cuda_launches() -> dict:
+    """Per kernel row, its wrapper's launches on the card so far
+    (``cz_kernel_calls_total{device="cuda"}``)."""
+    from repro_torch import obs
+
+    calls = obs.REGISTRY.get("cz_kernel_calls_total")
+    return {k: calls.value(kernel=v, device="cuda") for k, v in KERNEL_LABELS.items()}
+
+
+def _zero_launches(sides: list[dict]) -> None:
+    """Set every launch count to 0: per wrapper on the card, and per
+    (wrapper, block side) in ``sides``."""
+    from repro_torch import obs
+
+    calls = obs.REGISTRY.get("cz_kernel_calls_total")
+    for label in KERNEL_LABELS.values():
+        calls.set_total(0, kernel=label, device="cuda")
+    for c in sides:
+        c.clear()
+
+
+def _tune_series() -> dict:
+    """The tuner's series so far: trials per scheme, cache hits, and the
+    decision-time histogram."""
+    from repro_torch import obs
+
+    snap = obs.snapshot()
+    return {k: snap[k]["samples"] for k in ("cz_tune_trials_total", "cz_tune_cache_hits_total",
+                                            "cz_tune_decision_seconds") if k in snap}
+
+
+def _series_delta(before: dict, after: dict) -> dict:
+    """``after`` minus ``before`` for :func:`_tune_series` snapshots."""
+    out = {}
+    for name, rows in after.items():
+        old = {json.dumps(r["labels"], sort_keys=True): r for r in before.get(name, [])}
+        out[name] = []
+        for r in rows:
+            o = old.get(json.dumps(r["labels"], sort_keys=True))
+            if "value" in r:
+                out[name].append({"labels": r["labels"],
+                                  "value": r["value"] - (o["value"] if o else 0)})
+            else:
+                ob = dict(map(tuple, o["buckets"])) if o else {}
+                out[name].append({"labels": r["labels"],
+                                  "count": r["count"] - (o["count"] if o else 0),
+                                  "sum": r["sum"] - (o["sum"] if o else 0.0),
+                                  "buckets": [[b if b != float("inf") else "+Inf",
+                                               c - ob.get(b, 0)] for b, c in r["buckets"]]})
+    return out
+
+
 def run_cli_path(tmp: str, name: str, scheme_args: list[str], spec: str, bound,
-                 kernels: tuple[str, ...], counts: list[dict], sides: list[dict],
-                 qois: tuple[str, ...] = ("p", "rho", "E", "a2")) -> dict:
+                 kernels: tuple[str, ...], sides: list[dict],
+                 qois: tuple[str, ...] = ("p", "rho", "E", "a2"),
+                 recorded: str = "jax") -> dict:
     """One 512^3 snapshot through the CLI on the card, every launch count
-    (``counts``: per wrapper; ``sides``: per wrapper and block side) zeroed
+    (per wrapper, and per wrapper and block side in ``sides``) set to 0
     just before and read just after; each of ``kernels`` must run.
-    ``bound(max_abs)`` is the scheme's bound for a QoI of that max |x|."""
+    ``bound(max_abs)`` is
+    the scheme's bound for a QoI of that max |x|; ``recorded`` the device
+    the header must record.  Returns the footer's chunk mix per QoI and the
+    tuner's series of the run too."""
     from repro_torch.core import container
     from repro_torch.launch import compress
 
     out = os.path.join(tmp, name)
-    for c in counts:
-        for k in c:
-            c[k] = 0
-    for c in sides:
-        c.clear()
+    tune0 = _tune_series()
+    _zero_launches(sides)
     t0 = time.perf_counter()
     report = compress.main(["--source", "cavitation", "--n", str(N_MAIN),
                             "--t", str(T_MAIN), "--qoi", ",".join(qois),
                             "--device", "cuda", "--out", out, *scheme_args])
     total_s = time.perf_counter() - t0
-    launches = {k: v for c in counts for k, v in c.items()}
+    launches = _cuda_launches()
     by_side = {f"{k} n={n}": v for c in sides for (k, n), v in sorted(c.items())}
     for k in kernels:
         check(launches[k] > 0, f"{k} never launched on the {name} path")
     fields = report["fields"]
     check(list(fields) == list(qois), f"QoIs {list(fields)}")
+    mix = {}
     for q, r in fields.items():
         b = bound(r["max_abs"])
         check(r["max_abs_err"] <= b, f"{name} {q}: max error {r['max_abs_err']} > {b}")
         check(r["cr"] > 1 and r["psnr_db"] > 0, f"{name} {q}: CR {r['cr']} PSNR {r['psnr_db']}")
-    check(_recorded_device(container, os.path.join(out, "p.cz")) == "jax",
-          f"{name} header does not record the kernel path")
+        with open(os.path.join(out, f"{q}.cz"), "rb") as fh:
+            header = container._read_header(fh)[0]
+        check(header["spec"]["device"] == recorded,
+              f"{name} {q} header records {header['spec']['device']}, not {recorded}")
+        if "chunk_schemes" in header:
+            tally = {}
+            for rec in header["chunk_schemes"]:
+                key = f"{rec['scheme']} eps={rec['eps']:g}"
+                tally[key] = tally.get(key, 0) + 1
+            mix[q] = tally
     shutil.rmtree(out, ignore_errors=True)
-    return {"n": N_MAIN, "t_us": T_MAIN, "spec": spec, "qois": list(qois),
-            "generate_s": report["generate_s"], "total_s": total_s,
-            "fields": fields, "launches": launches, "launches_by_side": by_side}
+    res = {"n": N_MAIN, "t_us": T_MAIN, "spec": spec, "qois": list(qois),
+           "generate_s": report["generate_s"], "total_s": total_s,
+           "fields": fields, "launches": launches, "launches_by_side": by_side}
+    if mix:
+        res["chunk_mix"] = mix
+        res["tune"] = _series_delta(tune0, _tune_series())
+    return res
 
 
 def _max_abs_diff(got, want) -> float:
@@ -604,7 +907,8 @@ def _bit_equal(torch, got, want) -> bool:
     return torch.equal(got, want)
 
 
-def kernel_rows(torch, wv, zf, sz, ops, lkern, launches: dict) -> list[dict]:
+def kernel_rows(torch, wv, zf, sz, ops, lkern, launches: dict,
+                auto_launches: dict) -> list[dict]:
     """One row per ported kernel at its path's shapes: the wavelet forward,
     zfpx and lorenzo encode over a QoI's 4096 blocks, the inverse, zfpx and
     lorenzo decode over one read-path chunk of 32 blocks; the wavelet
@@ -683,7 +987,8 @@ def kernel_rows(torch, wv, zf, sz, ops, lkern, launches: dict) -> list[dict]:
         check(_bit_equal(torch, got, want), f"{name} vs plain at its path's shape: not bit-exact")
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err,
+            "launches": launches[name], "auto_path_launches": auto_launches[name],
+            "max_abs_err": err,
             "ms": kernel_ms(call, symbol, reps, per_call.get(name, 1)),
             "call_ms": median_ms(call, reps),
             "plain_ms": median_ms(plain, 5, warmup=1),
@@ -712,7 +1017,6 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import lorenzo as lkern
     from repro_torch.kernels import wavelet3d as wkern
-    from repro_torch.kernels import zfp_transform as zkern
 
     card = smi()
     emit({"phase": "card", "nvidia_smi": card, "name": torch.cuda.get_device_name(0),
@@ -733,7 +1037,6 @@ def main() -> int:
     tmp = os.path.join(ROOT, "build", "chip_smoke")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    counts = [wkern.LAUNCHES, zkern.LAUNCHES, lkern.LAUNCHES]
     sides = [wkern.LAUNCHES_BY_SIDE, lkern.LAUNCHES_BY_SIDE]
     try:
         t0 = time.perf_counter()
@@ -747,41 +1050,72 @@ def main() -> int:
         emit({"phase": "bits", "seconds": time.perf_counter() - t0, **bits})
         main_path = run_cli_path(tmp, "main_path", [], "CompressionSpec() defaults",
                                  lambda _m: 100 * EPS,
-                                 ("wavelet3d_forward", "wavelet3d_inverse"), counts, sides)
+                                 ("wavelet3d_forward", "wavelet3d_inverse"), sides)
         emit({"phase": "main_path", **main_path})
         block64_path = run_cli_path(tmp, "block64_path", ["--block-size", "64"],
                                     "CompressionSpec(block_size=64): w3ai, eps 1e-3, 4 "
                                     "levels, byte shuffle, zlib", lambda _m: 100 * EPS,
-                                    ("wavelet3d_forward", "wavelet3d_inverse"), counts, sides,
+                                    ("wavelet3d_forward", "wavelet3d_inverse"), sides,
                                     ("p",))
         emit({"phase": "block64_path", **block64_path})
         zfpx_path = run_cli_path(tmp, "zfpx_path", ["--scheme", "zfpx"],
                                  "CompressionSpec(scheme='zfpx'): eps 1e-3, 32^3 blocks, "
                                  "byte shuffle, zlib", lambda _m: ZFPX_BOUND,
-                                 ("zfpx_encode", "zfpx_decode"), counts, sides,
+                                 ("zfpx_encode", "zfpx_decode"), sides,
                                  ZFPX_PATH_QOIS)
         emit({"phase": "zfpx_path", **zfpx_path})
         lorenzo_path = run_cli_path(tmp, "lorenzo_path", ["--scheme", "lorenzo"],
                                     "CompressionSpec(scheme='lorenzo'): eps 1e-3, 32^3 "
                                     "blocks, byte shuffle, zlib", lorenzo_bound,
-                                    ("lorenzo_encode", "lorenzo_decode"), counts, sides)
+                                    ("lorenzo_encode", "lorenzo_decode"), sides,
+                                    LORENZO_PATH_QOIS)
         emit({"phase": "lorenzo_path", **lorenzo_path})
+        t0 = time.perf_counter()
+        fpzipx = phase_fpzipx(tmp)
+        emit({"phase": "fpzipx", "seconds": time.perf_counter() - t0, **fpzipx})
+        t0 = time.perf_counter()
+        from repro_torch.fields import CloudConfig, cavitation_fields
+
+        p512 = cavitation_fields(CloudConfig(n=N_MAIN), T_MAIN, device="cuda")["p"]
+        auto_interop = phase_auto_interop(tmp, p512)
+        emit({"phase": "auto_interop", "seconds": time.perf_counter() - t0, **auto_interop})
+        t0 = time.perf_counter()
+        auto_trials = phase_auto_trials(torch, wv, zf, sz, ops, p512)
+        del p512
+        emit({"phase": "auto_trials", "seconds": time.perf_counter() - t0, **auto_trials})
+        auto_path = run_cli_path(tmp, "auto_path", ["--scheme", "auto", "--target", "abs=1e-3"],
+                                 "CompressionSpec(scheme='auto', extra={'target': "
+                                 "'abs=1e-3'}): 32^3 blocks, 4 MiB chunks, byte shuffle, "
+                                 "zlib", auto_bound, tuple(KERNEL_LABELS), sides,
+                                 ("p",), recorded="host")
+        emit({"phase": "auto_path", **auto_path})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's launches on its own path
-    launches = {k: main_path["launches"][k] for k in wkern.LAUNCHES}
-    launches.update({f"{k}_n64": block64_path["launches"][k] for k in wkern.LAUNCHES})
-    launches.update({k: zfpx_path["launches"][k] for k in zkern.LAUNCHES})
-    launches.update({k: lorenzo_path["launches"][k] for k in lkern.LAUNCHES})
+    wavelet = ("wavelet3d_forward", "wavelet3d_inverse")
+    launches = {k: main_path["launches"][k] for k in wavelet}
+    launches.update({f"{k}_n64": block64_path["launches"][k] for k in wavelet})
+    launches.update({k: zfpx_path["launches"][k] for k in ("zfpx_encode", "zfpx_decode")})
+    launches.update({k: lorenzo_path["launches"][k]
+                     for k in ("lorenzo_encode", "lorenzo_decode")})
     # the rows at sides of their own: launches at that side, summed over
     # every path's run (each counted from 0)
-    runs = (main_path, block64_path, zfpx_path, lorenzo_path)
+    runs = (main_path, block64_path, zfpx_path, lorenzo_path, auto_path)
     for row, key in (("lorenzo_decode_n64", "lorenzo_decode n=64"),
                      ("wavelet3d_forward_n128", "wavelet3d_forward n=128"),
                      ("wavelet3d_inverse_n128", "wavelet3d_inverse n=128")):
         launches[row] = sum(run["launches_by_side"].get(key, 0) for run in runs)
+    # each row's launches on auto_path (at the row's block side)
+    auto_side = auto_path["launches_by_side"]
+    auto_launches = {k: auto_path["launches"][k] for k in KERNEL_LABELS}
+    for row, key in (("wavelet3d_forward_n64", "wavelet3d_forward n=64"),
+                     ("wavelet3d_inverse_n64", "wavelet3d_inverse n=64"),
+                     ("lorenzo_decode_n64", "lorenzo_decode n=64"),
+                     ("wavelet3d_forward_n128", "wavelet3d_forward n=128"),
+                     ("wavelet3d_inverse_n128", "wavelet3d_inverse n=128")):
+        auto_launches[row] = auto_side.get(key, 0)
     t0 = time.perf_counter()
-    rows = kernel_rows(torch, wv, zf, sz, ops, lkern, launches)
+    rows = kernel_rows(torch, wv, zf, sz, ops, lkern, launches, auto_launches)
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     print(card, flush=True)
     emit({"kernels": rows})

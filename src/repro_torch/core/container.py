@@ -37,10 +37,15 @@ _FOOTER_PTR = struct.Struct("<Q")
 
 
 def commit_footer(f, base_header: dict, sizes: list[int], nblks: list[int],
-                  crcs: list[int], footer_off: int) -> int:
+                  crcs: list[int], footer_off: int,
+                  records: list | None = None) -> int:
     """Append the JSON footer at ``footer_off`` and patch the magic's footer
     pointer; returns the container's total byte count.  Header key order
-    decides byte identity with the reference's containers."""
+    decides byte identity with the reference's containers.
+
+    ``records`` is the per-chunk :meth:`Scheme.chunk_record` collection; it
+    becomes the footer's ``chunk_schemes`` table only when some chunk
+    recorded something, so single-scheme containers keep their bytes."""
     header = dict(base_header)
     header.update({
         "nblocks": int(sum(nblks)),
@@ -48,6 +53,8 @@ def commit_footer(f, base_header: dict, sizes: list[int], nblks: list[int],
         "chunk_sizes": sizes,
         "chunk_crc32": crcs,
     })
+    if records is not None and any(r is not None for r in records):
+        header["chunk_schemes"] = records
     hbytes = json.dumps(header).encode()
     f.seek(footer_off)
     f.write(hbytes)
@@ -57,8 +64,10 @@ def commit_footer(f, base_header: dict, sizes: list[int], nblks: list[int],
 
 
 def write_stream(path: str, chunk_iter: Iterable[tuple[bytes, int]],
-                 base_header: dict) -> int:
-    """Stream ``(chunk, nblk)`` pairs to a CZ2 file; one chunk in memory."""
+                 base_header: dict, records: list | None = None) -> int:
+    """Stream ``(chunk, nblk)`` pairs to a CZ2 file; one chunk in memory.
+    ``records`` is the list the chunk iterator fills as it drains
+    (``Pipeline.iter_chunks(records=...)``), read once the loop is done."""
     sizes: list[int] = []
     nblks: list[int] = []
     crcs: list[int] = []
@@ -70,7 +79,8 @@ def write_stream(path: str, chunk_iter: Iterable[tuple[bytes, int]],
             sizes.append(len(chunk))
             nblks.append(nblk)
             crcs.append(zlib.crc32(chunk) & 0xFFFFFFFF)
-        return commit_footer(f, base_header, sizes, nblks, crcs, f.tell())
+        return commit_footer(f, base_header, sizes, nblks, crcs, f.tell(),
+                             records=records)
 
 
 def build_field_header(pipe: Pipeline, source, extra_header: dict | None = None):
@@ -99,7 +109,9 @@ def write_compressed(path: str, source, spec: CompressionSpec,
     :meth:`Pipeline.iter_chunks`; returns total bytes written."""
     pipe = Pipeline(spec, workers=workers, device=device)
     header, data = build_field_header(pipe, source, extra_header)
-    return write_stream(path, pipe.iter_chunks(data), header)
+    records: list = []
+    return write_stream(path, pipe.iter_chunks(data, records=records), header,
+                        records=records)
 
 
 def write_field(path: str, field, spec: CompressionSpec, workers: int = 1,

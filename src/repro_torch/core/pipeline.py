@@ -21,7 +21,9 @@ byte-identical.  ``CODEC_FORMAT`` is the reference's chunk layout version.
 ``STAGE_SECONDS`` sums the host-clock seconds of each stage over every call
 (and every worker thread); a caller zeroes or snapshots it to time a run.
 Stage 1 ends with its copies to the host, so its seconds include the card's
-work.
+work.  The reference's live series (``cz_pipeline_*`` in
+:mod:`repro_torch.obs`) and its trace spans (``stage1``, and ``encode`` /
+``decode`` per chunk) are recorded too, under the same names and labels.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from repro_torch import DEFAULT_DEVICE
+from repro_torch import DEFAULT_DEVICE, obs
+from repro_torch.obs import trace
 
 from . import blocks as blk
 from . import lossless
@@ -59,6 +62,47 @@ STAGE_SECONDS = dict.fromkeys(
 _STAGE_LOCK = threading.Lock()
 
 
+# -- per-chunk accounting: the reference's series, names and labels ----------
+_ENC_CHUNKS = obs.counter("cz_pipeline_chunks_encoded_total",
+                          "Chunks encoded (stage 1+2) by scheme.",
+                          labelnames=("scheme",))
+_DEC_CHUNKS = obs.counter("cz_pipeline_chunks_decoded_total",
+                          "Chunks decoded by scheme.",
+                          labelnames=("scheme",))
+_RAW_BYTES = obs.counter("cz_pipeline_raw_bytes_total",
+                         "Uncompressed bytes entering chunk encode.",
+                         labelnames=("scheme",))
+_ENC_BYTES = obs.counter("cz_pipeline_encoded_bytes_total",
+                         "Compressed bytes leaving chunk encode.",
+                         labelnames=("scheme",))
+_RATIO = obs.gauge("cz_pipeline_ratio",
+                   "Achieved compression ratio (cumulative raw/encoded).",
+                   labelnames=("scheme",))
+_ENC_SECONDS = obs.histogram("cz_pipeline_encode_seconds",
+                             "Per-chunk encode wall time by scheme.",
+                             buckets=obs.FAST_BUCKETS,
+                             labelnames=("scheme",))
+_DEC_SECONDS = obs.histogram("cz_pipeline_decode_seconds",
+                             "Per-chunk decode wall time by scheme.",
+                             buckets=obs.FAST_BUCKETS,
+                             labelnames=("scheme",))
+
+
+def _account_encode(scheme: str, ci: int, raw: int, enc: int,
+                    t0_ns: int, t1_ns: int) -> None:
+    _ENC_CHUNKS.inc(scheme=scheme)
+    _RAW_BYTES.inc(raw, scheme=scheme)
+    _ENC_BYTES.inc(enc, scheme=scheme)
+    total_raw = _RAW_BYTES.value(scheme=scheme)
+    total_enc = _ENC_BYTES.value(scheme=scheme)
+    if total_enc:
+        _RATIO.set(total_raw / total_enc, scheme=scheme)
+    _ENC_SECONDS.observe((t1_ns - t0_ns) / 1e9, scheme=scheme)
+    trace.record("encode", t0_ns, t1_ns, chunk=ci, scheme=scheme,
+                 raw_bytes=raw, encoded_bytes=enc,
+                 ratio=round(raw / enc, 3) if enc else None)
+
+
 @contextlib.contextmanager
 def _timed(stage: str):
     t0 = time.perf_counter()
@@ -72,7 +116,7 @@ def _timed(stage: str):
 
 @dataclasses.dataclass(frozen=True)
 class CompressionSpec:
-    scheme: str = "wavelet"      # a registered scheme (wavelet | zfpx | lorenzo | szx | raw)
+    scheme: str = "wavelet"      # a registered scheme (see schemes.scheme_names)
     wavelet: str = "w3ai"        # w4i | w4l | w3ai
     eps: float = 1e-3            # absolute error tolerance
     block_size: int = 32
@@ -81,7 +125,7 @@ class CompressionSpec:
     zero_bits: int = 0           # Z4/Z8 bit zeroing of detail coefficients
     stage2: str = "zlib"         # see repro_torch.core.lossless.METHODS
     buffer_bytes: int = 4 << 20  # per-thread aggregation buffer (paper: 4 MB)
-    precision: int = 32          # fpzipx bits of precision (kept for headers)
+    precision: int = 32          # fpzipx bits of precision (32 = lossless)
     dtype: str = "float32"       # field dtype tag (see DTYPES)
     device: str = "host"         # where stage 1 ran: host | jax (set by Pipeline)
     extra: dict = dataclasses.field(default_factory=dict)  # third-party knobs
@@ -180,31 +224,49 @@ class Pipeline:
 
     # -- compression -------------------------------------------------------
 
-    def iter_chunks(self, blocks) -> Iterator[tuple[bytes, int]]:
+    def iter_chunks(self, blocks, records: list | None = None
+                    ) -> Iterator[tuple[bytes, int]]:
         """Yield ``(chunk_bytes, n_blocks)`` one aggregation buffer at a time.
 
         Substage 1 runs once over the whole batch on the device; its host
         streams stay resident for the generator's lifetime, while
         serialization and substage 2 stream chunk by chunk.
+
+        ``records`` (a caller-owned list) collects each chunk's
+        :meth:`Scheme.chunk_record` in chunk order, ``None`` where the scheme
+        records nothing, under ``workers > 1`` too.
         """
         spec = self.spec
         blocks = self.as_tensor(blocks)
-        with _timed("stage1"):
-            s1 = self.scheme.stage1(blocks, spec)
         nblk = blocks.shape[0]
+        with _timed("stage1"), trace.span("stage1", scheme=spec.scheme,
+                                          device=spec.device, nblocks=int(nblk)):
+            s1 = self.scheme.stage1(blocks, spec)
         bpc = self.blocks_per_chunk
-        ranges = [(lo, min(lo + bpc, nblk)) for lo in range(0, nblk, bpc)]
+        ranges = [(ci, lo, min(lo + bpc, nblk))
+                  for ci, lo in enumerate(range(0, nblk, bpc))]
+        block_bytes = spec.np_dtype.itemsize * spec.block_size ** 3
 
-        def encode(lo: int, hi: int) -> bytes:
+        def encode(ci: int, lo: int, hi: int) -> tuple[bytes, dict | None]:
+            t0 = time.perf_counter_ns()
             with _timed("serialize"):
                 payload = self.scheme.serialize(s1, lo, hi, spec)
             with _timed("stage2_encode"):
-                return lossless.encode(payload, spec.stage2)
+                chunk = lossless.encode(payload, spec.stage2)
+            rec = self.scheme.chunk_record(s1, lo, hi, spec)
+            _account_encode(spec.scheme, ci, (hi - lo) * block_bytes,
+                            len(chunk), t0, time.perf_counter_ns())
+            return chunk, rec
+
+        def emit(chunk: bytes, rec: dict | None, n: int) -> tuple[bytes, int]:
+            if records is not None:
+                records.append(rec)
+            return chunk, n
 
         nworkers = self.workers
         if nworkers <= 1:
-            for lo, hi in ranges:
-                yield encode(lo, hi), hi - lo
+            for ci, lo, hi in ranges:
+                yield emit(*encode(ci, lo, hi), hi - lo)
             return
 
         with concurrent.futures.ThreadPoolExecutor(nworkers) as pool:
@@ -216,11 +278,12 @@ class Pipeline:
                 for r in itertools.islice(it, 2 * nworkers))
             try:
                 while pending:
-                    (lo, hi), fut = pending.popleft()
+                    (_ci, lo, hi), fut = pending.popleft()
                     nxt = next(it, None)
                     if nxt is not None:
                         pending.append((nxt, pool.submit(encode, *nxt)))
-                    yield fut.result(), hi - lo
+                    # the one ordered drain appends records in chunk order
+                    yield emit(*fut.result(), hi - lo)
             finally:
                 for _r, fut in pending:
                     fut.cancel()
@@ -229,7 +292,8 @@ class Pipeline:
                         ) -> CompressedField:
         blocks = self.as_tensor(blocks)
         chunks, chunk_nblocks = [], []
-        for chunk, nblk in self.iter_chunks(blocks):
+        records: list = []
+        for chunk, nblk in self.iter_chunks(blocks, records=records):
             chunks.append(chunk)
             chunk_nblocks.append(nblk)
         header = self.base_header()
@@ -239,6 +303,8 @@ class Pipeline:
             "chunk_sizes": [len(c) for c in chunks],
             "raw_bytes": int(blocks.numel() * self.spec.np_dtype.itemsize),
         })
+        if any(r is not None for r in records):
+            header["chunk_schemes"] = records
         if extra_header:
             header.update(extra_header)
         return CompressedField(chunks, header)
@@ -266,6 +332,7 @@ class Pipeline:
     def decompress_chunk(self, buf: bytes, nblk: int,
                          fmt: int = CODEC_FORMAT) -> np.ndarray:
         """One chunk written under container format ``fmt`` -> its blocks."""
+        t0 = time.perf_counter_ns()
         spec = self.scheme.decode_spec(self.spec, fmt)
         with _timed("stage2_decode"):
             payload = lossless.decode(buf, spec.stage2)
@@ -273,7 +340,13 @@ class Pipeline:
             blocks = self.scheme.deserialize(payload, nblk, spec, self.device)
         # lossy schemes compute in float32; the dtype tag restores the field
         # dtype (raw already deserializes in the tagged dtype — no-op there)
-        return blocks.astype(spec.np_dtype, copy=False)
+        out = blocks.astype(spec.np_dtype, copy=False)
+        t1 = time.perf_counter_ns()
+        _DEC_CHUNKS.inc(scheme=spec.scheme)
+        _DEC_SECONDS.observe((t1 - t0) / 1e9, scheme=spec.scheme)
+        trace.record("decode", t0, t1, scheme=spec.scheme, nblocks=nblk,
+                     encoded_bytes=len(buf))
+        return out
 
     def decompress_blocks(self, comp: CompressedField) -> np.ndarray:
         return np.concatenate([

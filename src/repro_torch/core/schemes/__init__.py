@@ -10,9 +10,9 @@ Each scheme is a self-describing object that owns
     device)`` — the host byte layout of one aggregation-buffer chunk, the
     same bytes the reference writes.
 
-``wavelet``, ``zfpx``, ``lorenzo``, ``szx`` and ``raw`` are ported so far;
-the reference's other schemes are named in :data:`NOT_YET_PORTED` and
-asking for one raises ``ValueError``.
+All seven of the reference's schemes are registered: ``wavelet``,
+``zfpx``, ``lorenzo``, ``szx``, ``fpzipx``, ``raw`` and the ``auto``
+meta-scheme, which picks one of the others per chunk.
 """
 from __future__ import annotations
 
@@ -28,13 +28,9 @@ from ._device import DEVICES, check_device, resolved_device, torch_device
 if TYPE_CHECKING:  # avoid a runtime cycle with repro_torch.core.pipeline
     from ..pipeline import CompressionSpec
 
-__all__ = ["Scheme", "NOT_YET_PORTED", "register_scheme", "get_scheme",
-           "scheme_names", "shuffle_bytes",
-           "unshuffle_bytes", "DEVICES", "check_device", "resolved_device",
-           "torch_device"]
-
-#: schemes of the reference that this package does not implement yet
-NOT_YET_PORTED = ("fpzipx", "auto")
+__all__ = ["Scheme", "register_scheme", "get_scheme", "scheme_names",
+           "shuffle_bytes", "unshuffle_bytes", "DEVICES", "check_device",
+           "resolved_device", "torch_device"]
 
 _REGISTRY: dict[str, "Scheme"] = {}
 
@@ -89,6 +85,26 @@ class Scheme(abc.ABC):
         """
         return spec
 
+    def check(self, blocks: torch.Tensor, spec: "CompressionSpec") -> None:
+        """The scheme's own guard on the data: raise ValueError if ``blocks``
+        cannot be encoded under ``spec``, before any transform runs.
+
+        The tuner scores a candidate whose guard fires as inadmissible (the
+        reference catches the same ``ValueError`` from its stage 1); any
+        error from the transform itself, a refused kernel launch included,
+        propagates.  Stage 1 raises what this raises."""
+
+    def chunk_record(self, s1: dict, lo: int, hi: int,
+                     spec: "CompressionSpec") -> dict | None:
+        """Optional JSON-able per-chunk footer record for blocks [lo, hi),
+        called right after :meth:`serialize` for the same range.
+
+        ``None`` (the default) records nothing, and containers stay
+        byte-identical.  ``auto`` returns each chunk's winning scheme + eps;
+        the container writer collects them into the footer's
+        ``chunk_schemes`` table."""
+        return None
+
     @abc.abstractmethod
     def stage1(self, blocks: torch.Tensor, spec: "CompressionSpec") -> dict[str, np.ndarray]:
         """Transform of a whole (nblk, bs, bs, bs) batch -> host streams."""
@@ -117,8 +133,6 @@ def get_scheme(name: str) -> Scheme:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in NOT_YET_PORTED:
-            raise ValueError(f"scheme {name!r} not yet ported") from None
         raise ValueError(
             f"unknown scheme {name!r}; registered: {', '.join(sorted(_REGISTRY))}"
         ) from None
@@ -129,5 +143,7 @@ def scheme_names() -> list[str]:
     return sorted(_REGISTRY)
 
 
-# Built-in schemes self-register on import.
-from . import lorenzo, raw, szx, wavelet, zfpx  # noqa: E402,F401
+# Built-in schemes self-register on import.  ``auto`` comes last: the
+# meta-scheme delegates to whatever else is registered.
+from . import fpzipx, lorenzo, raw, szx, wavelet, zfpx  # noqa: E402,F401
+from . import auto  # noqa: E402,F401

@@ -41,9 +41,12 @@ class LorenzoScheme(Scheme):
     def error_bound(self, spec) -> float:
         return spec.eps
 
+    def check(self, blocks, spec) -> None:
+        _szx.check_eps(float(blocks.to(torch.float32).abs().max()), spec.eps)
+
     def stage1(self, blocks, spec):
         x = blocks.to(torch.float32).contiguous()
-        _szx.check_eps(float(x.abs().max()), spec.eps)
+        self.check(x, spec)
         return {"res": ops.lorenzo_encode(x, eps=spec.eps).cpu().numpy()}
 
     def serialize(self, s1, lo, hi, spec) -> bytes:

@@ -43,9 +43,12 @@ class SzxScheme(Scheme):
             return dataclasses.replace(spec, shuffle="none")
         return spec
 
+    def check(self, blocks, spec) -> None:
+        _szx.check_eps(float(blocks.to(torch.float32).abs().max()), spec.eps)
+
     def stage1(self, blocks, spec):
         x = blocks.to(torch.float32)
-        _szx.check_eps(float(x.abs().max()), spec.eps)
+        self.check(x, spec)
         return {"res": _szx.encode(x, eps=spec.eps).cpu().numpy()}
 
     def serialize(self, s1, lo, hi, spec) -> bytes:

@@ -46,7 +46,12 @@ class WaveletScheme(Scheme):
     def error_bound(self, spec) -> float:
         return self.BOUND_FACTOR * spec.eps
 
+    def check(self, blocks, spec) -> None:
+        # the reference validates the level count only in its transform
+        wavelets.default_levels(spec.block_size, spec.levels)
+
     def stage1(self, blocks, spec):
+        self.check(blocks, spec)
         x = blocks.to(torch.float32).contiguous()
         coeffs = ops.wavelet_forward(x, kind=spec.wavelet, levels=spec.levels)
         mask = threshold.significant_mask(coeffs, spec.eps, spec.levels)

@@ -30,29 +30,30 @@ int32 arithmetic, exact in any order.
 
 Each wrapper routes by the tensor's device: a CPU tensor goes to the plain
 PyTorch version (:func:`repro_torch.core.szx.encode` / ``decode``); a CUDA
-tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel launches
-per wrapper, one per call (the staged path's three passes count as one
-launch of the decode), and nothing else; ``LAUNCHES_BY_SIDE`` counts the
-same launches per (wrapper, block side).
+tensor launches the kernel or raises.  Each launch on the card counts one
+in ``cz_kernel_calls_total{kernel, device="cuda"}`` (:mod:`._obs`), one
+per call (the staged path's three passes count as one launch of the
+decode), and nothing else does; ``LAUNCHES_BY_SIDE`` counts the same
+launches per (wrapper, block side), exactly when several threads launch.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import threading
 
 import torch
 
 from repro_torch.core import szx
 
 from . import _build
+from ._obs import instrument, launched
 
-__all__ = ["lorenzo_encode", "lorenzo_decode", "decode_design", "LAUNCHES",
-           "LAUNCHES_BY_SIDE"]
+__all__ = ["lorenzo_encode", "lorenzo_decode", "decode_design", "LAUNCHES_BY_SIDE"]
 
-#: kernel launches per wrapper; set to 0 to count one run's launches
-LAUNCHES = {"lorenzo_encode": 0, "lorenzo_decode": 0}
-#: the same launches per (wrapper, block side); clear it to count one run's
+#: kernel launches per (wrapper, block side); clear it to count one run's
 LAUNCHES_BY_SIDE: collections.Counter = collections.Counter()
+_COUNT_LOCK = threading.Lock()
 
 _LIB: ctypes.CDLL | None = None
 
@@ -100,11 +101,13 @@ def _launch(name: str, src: torch.Tensor, dtype: torch.dtype, out_dtype: torch.d
     if rc != 0:
         msg = _lib().lorenzo_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
-    LAUNCHES[name] += 1
-    LAUNCHES_BY_SIDE[name, src.shape[-1]] += 1
+    launched(name)
+    with _COUNT_LOCK:
+        LAUNCHES_BY_SIDE[name, src.shape[-1]] += 1
     return out
 
 
+@instrument("lorenzo_encode")
 def lorenzo_encode(blocks: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
     """(B, n, n, n) float32 -> int32 Lorenzo residuals of the same shape."""
     if blocks.device.type == "cpu":
@@ -112,6 +115,7 @@ def lorenzo_encode(blocks: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
     return _launch("lorenzo_encode", blocks, torch.float32, torch.int32, *szx.grid(eps))
 
 
+@instrument("lorenzo_decode")
 def lorenzo_decode(residuals: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
     """Inverse of :func:`lorenzo_encode` -> (B, n, n, n) float32."""
     if residuals.device.type == "cpu":

@@ -1,9 +1,10 @@
 """Public kernel entry points (port of ``repro.kernels.ops``).
 
 The reference wraps each Pallas kernel in ``jax.jit`` and compile/execute
-metrics.  PyTorch runs eagerly and this slice carries no metrics, so these
-are the kernel wrappers themselves: a CUDA tensor launches the hand-written
-kernel, a CPU tensor runs its plain PyTorch version.
+metrics.  PyTorch runs eagerly, so these are the kernel wrappers
+themselves, with the reference's ``cz_kernel_*`` metrics (:mod:`._obs`): a
+CUDA tensor launches the hand-written kernel, a CPU tensor runs its plain
+PyTorch version.
 """
 from __future__ import annotations
 

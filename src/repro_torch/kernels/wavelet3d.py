@@ -24,15 +24,18 @@ bits do not depend on the batch it came in (the Pallas kernel's do).
 
 Each wrapper routes by the tensor's device: a CPU tensor goes to the plain
 PyTorch version (:func:`repro_torch.core.wavelets.forward3d` /
-``inverse3d``); a CUDA tensor launches the kernel or raises.  ``LAUNCHES``
-counts, per wrapper, the calls that launched the kernels (one launch, or
-one per level and axis from n = 128), and nothing else;
-``LAUNCHES_BY_SIDE`` counts the same calls per (wrapper, block side).
+``inverse3d``); a CUDA tensor launches the kernel or raises.  Each call
+that launched the kernels (one launch, or one per level and axis from
+n = 128) counts one in ``cz_kernel_calls_total{kernel, device="cuda"}``
+(:mod:`._obs`), and nothing else does; ``LAUNCHES_BY_SIDE`` counts the
+same calls per (wrapper, block side), exactly when several threads launch
+(the tuner's trials do).
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -40,16 +43,20 @@ import torch
 from repro_torch.core import wavelets as wv
 
 from . import _build
+from ._obs import instrument, launched
 
-__all__ = ["wavelet3d_forward", "wavelet3d_inverse", "LAUNCHES", "LAUNCHES_BY_SIDE"]
+__all__ = ["wavelet3d_forward", "wavelet3d_inverse", "LAUNCHES_BY_SIDE"]
 
-#: kernel launches per wrapper; set to 0 to count one run's launches
-LAUNCHES = {"wavelet3d_forward": 0, "wavelet3d_inverse": 0}
-#: the same launches per (wrapper, block side); clear it to count one run's
+#: kernel launches per (wrapper, block side); clear it to count one run's
 LAUNCHES_BY_SIDE: collections.Counter = collections.Counter()
+#: each kernel's label in cz_kernel_calls_total (the reference's)
+_LABELS = {"wavelet3d_forward": "wavelet_forward", "wavelet3d_inverse": "wavelet_inverse"}
+
+_COUNT_LOCK = threading.Lock()
 
 _KINDS = {"w4i": 0, "w4l": 1, "w3ai": 2}
 _WEIGHTS: dict[tuple, torch.Tensor] = {}
+_WEIGHTS_LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 
 
@@ -93,10 +100,10 @@ def tap_weights(kind: str, n: int, levels: int) -> np.ndarray:
 
 def _device_weights(kind: str, n: int, levels: int, device) -> torch.Tensor:
     key = (kind, n, levels, str(device))
-    w = _WEIGHTS.get(key)
-    if w is None:
-        w = torch.from_numpy(tap_weights(kind, n, levels)).to(device)
-        _WEIGHTS[key] = w
+    with _WEIGHTS_LOCK:
+        w = _WEIGHTS.get(key)
+        if w is None:
+            w = _WEIGHTS[key] = torch.from_numpy(tap_weights(kind, n, levels)).to(device)
     return w
 
 
@@ -129,11 +136,13 @@ def _launch(name: str, blocks: torch.Tensor, kind: str,
     if rc != 0:
         msg = _lib().wavelet3d_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
-    LAUNCHES[name] += 1
-    LAUNCHES_BY_SIDE[name, n] += 1
+    launched(_LABELS[name])
+    with _COUNT_LOCK:
+        LAUNCHES_BY_SIDE[name, n] += 1
     return out
 
 
+@instrument("wavelet_forward")
 def wavelet3d_forward(blocks: torch.Tensor, kind: str = "w3ai",
                       levels: int | None = None) -> torch.Tensor:
     """Forward multi-level 3D DWT of (B, n, n, n) blocks."""
@@ -142,6 +151,7 @@ def wavelet3d_forward(blocks: torch.Tensor, kind: str = "w3ai",
     return _launch("wavelet3d_forward", blocks, kind, levels)
 
 
+@instrument("wavelet_inverse")
 def wavelet3d_inverse(blocks: torch.Tensor, kind: str = "w3ai",
                       levels: int | None = None) -> torch.Tensor:
     """Inverse of :func:`wavelet3d_forward`."""

@@ -21,8 +21,9 @@ does.
 
 Each wrapper routes by the tensor's device: a CPU tensor goes to the plain
 PyTorch version (:func:`repro_torch.core.zfpx.encode` / ``decode``); a CUDA
-tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel launches
-per wrapper, and nothing else.
+tensor launches the kernel or raises.  Each launch counts one in
+``cz_kernel_calls_total{kernel, device="cuda"}`` (:mod:`._obs`), and
+nothing else does.
 """
 from __future__ import annotations
 
@@ -33,11 +34,9 @@ import torch
 from repro_torch.core import zfpx as zf
 
 from . import _build
+from ._obs import instrument, launched
 
-__all__ = ["zfpx_encode", "zfpx_decode", "LAUNCHES"]
-
-#: kernel launches per wrapper; set to 0 to count one run's launches
-LAUNCHES = {"zfpx_encode": 0, "zfpx_decode": 0}
+__all__ = ["zfpx_encode", "zfpx_decode"]
 
 _LIB: ctypes.CDLL | None = None
 
@@ -70,14 +69,15 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 
 def _run(name: str, fn, *args) -> None:
-    with torch.cuda.device(args[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
+    dev = args[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
                 stream)
     if rc != 0:
         msg = _lib().zfpx_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
-    LAUNCHES[name] += 1
+    launched(name)
 
 
 def _encode_launch(blocks: torch.Tensor, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
@@ -116,6 +116,7 @@ def _decode_launch(emax: torch.Tensor, q: torch.Tensor, n: int) -> torch.Tensor:
     return out
 
 
+@instrument("zfpx_encode")
 def zfpx_encode(blocks: torch.Tensor, eps: float = 1e-3
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, n, n, n) float32 -> (emax (B, nc) int32, q (B, nc, 64) int32)."""
@@ -124,6 +125,7 @@ def zfpx_encode(blocks: torch.Tensor, eps: float = 1e-3
     return _encode_launch(blocks, eps)
 
 
+@instrument("zfpx_decode")
 def zfpx_decode(emax: torch.Tensor, q: torch.Tensor, eps: float = 1e-3,
                 n: int = 32) -> torch.Tensor:
     """Inverse of :func:`zfpx_encode` -> (B, n, n, n) float32.  ``eps`` is

@@ -12,14 +12,26 @@ Examples:
   python -m repro_torch.launch.compress --scheme zfpx --n 512 --out artifacts/zfpx
   python -m repro_torch.launch.compress --scheme lorenzo --n 512 --out artifacts/lorenzo
   python -m repro_torch.launch.compress --device cpu --scheme szx --n 64 --out /tmp/szx
+  python -m repro_torch.launch.compress --scheme fpzipx --precision 16 --out /tmp/fpz
+  python -m repro_torch.launch.compress --scheme auto --target psnr=80 --out /tmp/auto
+  python -m repro_torch.launch.compress --scheme auto --trace t.json --out /tmp/auto
+  python -m repro_torch.launch.compress --list-schemes
   python -m repro_torch.launch.compress --decompress artifacts/fields/p.cz \
       --verify-against p.npy
+
+``--scheme auto`` picks the best registered scheme per chunk for the quality
+target ``--target`` (``abs=V``, ``rel=V`` or ``psnr=DB``; default
+``abs=<--eps>``); ``--tune-cache K`` reuses decisions for chunks with
+matching statistics.  ``--trace OUT.json`` writes a Chrome trace of the
+run's spans (stage 1, each chunk's encode and decode, trials, kernel
+calls), viewable in Perfetto.
 
 The containers are readable by the reference (``repro``) and vice versa.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -32,12 +44,42 @@ from repro_torch import DEFAULT_DEVICE
 from repro_torch.core import container
 from repro_torch.core.metrics import compression_ratio, psnr
 from repro_torch.core.pipeline import STAGE_SECONDS, CompressionSpec
-from repro_torch.core.schemes import scheme_names
+from repro_torch.core.schemes import get_scheme, scheme_names
 
 
 def _sync(device: str) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def _trace_scope(out_path: str | None):
+    """Collect the port's spans for the duration and write a Chrome trace
+    file on exit (no-op when ``out_path`` is falsy)."""
+    if not out_path:
+        yield
+        return
+    from repro_torch.obs import trace
+
+    trace.enable()
+    try:
+        yield
+    finally:
+        trace.disable()
+        print(f"trace written to {trace.save(out_path)}")
+
+
+def _tune_extra(ap: argparse.ArgumentParser, args) -> dict:
+    """Fold the tuning flags into ``spec.extra``; reject them for fixed
+    schemes so a typo'd --scheme never silently drops the quality target."""
+    extra = {}
+    if args.target:
+        extra["target"] = args.target
+    if args.tune_cache:
+        extra["tune_cache"] = args.tune_cache
+    if extra and args.scheme != "auto":
+        ap.error("--target/--tune-cache only apply to --scheme auto")
+    return extra
 
 
 def main(argv=None) -> dict | None:
@@ -51,19 +93,43 @@ def main(argv=None) -> dict | None:
     ap.add_argument("--n", type=int, default=128)
     ap.add_argument("--qoi", default="p,rho,E,a2")
     ap.add_argument("--scheme", default="wavelet",
-                    help=f"a ported scheme ({', '.join(scheme_names())})")
+                    help=f"any registered scheme ({', '.join(scheme_names())})")
+    ap.add_argument("--list-schemes", action="store_true",
+                    help="print the scheme registry and exit")
     ap.add_argument("--wavelet", default="w3ai")
     ap.add_argument("--eps", type=float, default=1e-3)
     ap.add_argument("--block-size", type=int, default=32)
     ap.add_argument("--shuffle", default="byte")
+    ap.add_argument("--zero-bits", type=int, default=0)
     ap.add_argument("--stage2", default="zlib")
+    ap.add_argument("--precision", type=int, default=32)
+    ap.add_argument("--target", default="", metavar="MODE=VALUE",
+                    help="quality target for --scheme auto: abs=1e-3 "
+                    "(max abs error), rel=1e-4 (x value range), or psnr=80 "
+                    "(dB); default abs=<--eps>")
+    ap.add_argument("--tune-cache", type=int, default=0, metavar="K",
+                    help="with --scheme auto: reuse tuning decisions for "
+                    "chunks with matching stats, re-trialling every K-th "
+                    "occurrence (0 = trial every chunk, the default)")
     ap.add_argument("--device", default=DEFAULT_DEVICE, choices=["cuda", "cpu"],
                     help="torch device of stage 1 and of the decode")
     ap.add_argument("--out", default="artifacts/fields", help="output directory")
     ap.add_argument("--decompress", default="", metavar="FILE.cz")
     ap.add_argument("--verify-against", default="", metavar="FIELD.npy")
+    ap.add_argument("--trace", metavar="OUT.json",
+                    help="collect the port's spans (stage1/encode/decode, trials, "
+                    "kernel calls) and write a Chrome trace — view in Perfetto")
     args = ap.parse_args(argv)
 
+    if args.list_schemes:
+        for name in scheme_names():
+            print(f"{name:10s} {type(get_scheme(name)).__module__}")
+        return None
+    with _trace_scope(args.trace):
+        return _body(ap, args)
+
+
+def _body(ap: argparse.ArgumentParser, args) -> dict | None:
     if args.decompress:
         t0 = time.perf_counter()
         field = container.read_field(args.decompress, device=args.device)
@@ -76,7 +142,8 @@ def main(argv=None) -> dict | None:
 
     spec = CompressionSpec(scheme=args.scheme, wavelet=args.wavelet, eps=args.eps,
                            block_size=args.block_size, shuffle=args.shuffle,
-                           stage2=args.stage2)
+                           zero_bits=args.zero_bits, stage2=args.stage2,
+                           precision=args.precision, extra=_tune_extra(ap, args))
     try:
         spec.validate()
     except ValueError as e:

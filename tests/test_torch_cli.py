@@ -113,9 +113,51 @@ def test_cli_lorenzo_szx_writes_and_decompress_verifies(tmp_path, capsys, scheme
     assert "PSNR vs reference" in capsys.readouterr().out
 
 
-def test_cli_rejects_unported_scheme(tmp_path, capsys):
+def test_cli_rejects_unknown_scheme(tmp_path, capsys):
     with pytest.raises(SystemExit) as exc:
-        compress.main(["--device", "cpu", "--n", "32", "--scheme", "fpzipx",
+        compress.main(["--device", "cpu", "--n", "32", "--scheme", "fpzipy",
                        "--out", str(tmp_path)])
     assert exc.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
+    assert "unknown scheme 'fpzipy'" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("args", [
+    ["--scheme", "fpzipx"],
+    ["--scheme", "fpzipx", "--precision", "16"],
+    ["--scheme", "auto"],
+    ["--scheme", "auto", "--target", "psnr=80", "--tune-cache", "2"],
+], ids=["fpzipx", "fpzipx-p16", "auto", "auto-psnr-cache"])
+def test_cli_fpzipx_auto_files_equal_reference_cli(tmp_path, args):
+    """``--scheme fpzipx|auto`` at ``--device cpu``: the files the port's
+    CLI writes are the reference CLI's bytes for the same field (a 32^3
+    cavitation p from the port's generator, through ``--source npy``)."""
+    from repro.launch import compress as rcompress
+
+    f = tcavitation_fields(TCloudConfig(n=32), 9.4, device="cpu")["p"].numpy()
+    np.save(tmp_path / "p.npy", f)
+    common = ["--source", "npy", "--npy", str(tmp_path / "p.npy"), "--block-size", "16",
+              *args]
+    report = compress.main(["--device", "cpu", *common, "--out", str(tmp_path / "t")])
+    rcompress.main([*common, "--out", str(tmp_path / "r")])
+    got = (tmp_path / "t" / "field.cz").read_bytes()
+    assert got == (tmp_path / "r" / "field.cz").read_bytes()
+    r = report["fields"]["field"]
+    if args == ["--scheme", "fpzipx"]:  # lossless
+        assert r["max_abs_err"] == 0.0
+    elif args == ["--scheme", "auto"]:  # the default target, abs=eps
+        assert r["max_abs_err"] <= EPS * (1 + 1e-6) + np.spacing(np.float32(r["max_abs"]))
+
+
+def test_cli_list_schemes_prints_all_seven(capsys):
+    assert compress.main(["--list-schemes"]) is None
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split()[0] for ln in lines] == sorted(
+        ["auto", "fpzipx", "lorenzo", "raw", "szx", "wavelet", "zfpx"])
+    assert all(ln.split()[1].startswith("repro_torch.core.schemes.") for ln in lines)
+
+
+def test_cli_tune_flags_need_scheme_auto(tmp_path, capsys):
+    with pytest.raises(SystemExit) as exc:
+        compress.main(["--device", "cpu", "--target", "abs=1e-3", "--out", str(tmp_path)])
+    assert exc.value.code == 2
+    assert "only apply to --scheme auto" in capsys.readouterr().err

@@ -93,10 +93,12 @@ def test_cz2_wavelet_fixture_reads_within_tolerance():
     np.testing.assert_allclose(dec, want, rtol=0, atol=2e-5)
 
 
-@pytest.mark.parametrize("stem,scheme", [("cz2_auto", "auto")])
-def test_unported_fixtures_raise(stem, scheme):
-    with pytest.raises(ValueError, match=f"scheme '{scheme}' not yet ported"):
-        tcont.read_field(os.path.join(DATA, f"{stem}.cz"), device="cpu")
+def test_cz2_auto_fixture_reads_byte_exact():
+    """A mixed container: 2 wavelet and 6 szx chunks, each behind its
+    name + eps prelude."""
+    dec = tcont.read_field(os.path.join(DATA, "cz2_auto.cz"), device="cpu")
+    np.testing.assert_array_equal(
+        dec, np.load(os.path.join(DATA, "cz2_auto.decoded.npy")), strict=True)
 
 
 def test_corrupt_chunk_is_detected(tmp_path):

@@ -24,6 +24,19 @@ def _port_modules() -> list[str]:
     return mods
 
 
+#: modules of the later slices, each of which must be in the import check
+NEW_MODULES = ("repro_torch.obs", "repro_torch.obs.registry", "repro_torch.obs.context",
+               "repro_torch.obs.events", "repro_torch.obs.trace", "repro_torch.obs.sampling",
+               "repro_torch.tune", "repro_torch.tune.bound", "repro_torch.tune.trial",
+               "repro_torch.tune.policy", "repro_torch.core.fpzipx",
+               "repro_torch.core.schemes.fpzipx", "repro_torch.core.schemes.auto",
+               "repro_torch.kernels._obs")
+
+
+def test_new_modules_are_in_the_import_check():
+    assert set(NEW_MODULES) <= set(_port_modules())
+
+
 def test_every_port_module_imports_with_jax_and_repro_blocked():
     code = (
         "import sys, importlib\n"

@@ -92,11 +92,19 @@ def test_kernels_build_into_the_checkout_or_a_user_cache(tmp_path, monkeypatch):
     assert mod.BUILD_DIR == tmp_path / "cache" / "repro_torch_kernels"
 
 
+def _cuda_launches() -> dict:
+    from repro_torch import obs
+
+    calls = obs.REGISTRY.get("cz_kernel_calls_total")
+    return {k: calls.value(kernel=k, device="cuda") for k in ("wavelet_forward", "wavelet_inverse")}
+
+
 def test_wavelet_wrappers_count_no_launch_on_the_cpu():
-    """The counters count kernel launches only: a CPU call runs the plain
-    version and leaves both the per-wrapper and the per-side count as
+    """The launch counts count kernel launches only: a CPU call runs the
+    plain version and leaves both the per-wrapper count on the card
+    (``cz_kernel_calls_total{device="cuda"}``) and the per-side count as
     they were."""
-    before, by_side = dict(tkern.LAUNCHES), dict(tkern.LAUNCHES_BY_SIDE)
+    before, by_side = _cuda_launches(), dict(tkern.LAUNCHES_BY_SIDE)
     x = torch.from_numpy(np.random.default_rng(4).uniform(-1, 1, (2, 8, 8, 8)).astype(np.float32))
     tkern.wavelet3d_inverse(tkern.wavelet3d_forward(x, "w3ai", 1), "w3ai", 1)
-    assert tkern.LAUNCHES == before and dict(tkern.LAUNCHES_BY_SIDE) == by_side
+    assert _cuda_launches() == before and dict(tkern.LAUNCHES_BY_SIDE) == by_side

@@ -404,14 +404,22 @@ def test_decode_wrapper_refuses_what_the_kernel_does_not_take(shape, dtype, err,
         tkern.lorenzo_decode(torch.empty(shape, dtype=dtype, device="meta"))
 
 
+def _cuda_launches() -> dict:
+    from repro_torch import obs
+
+    calls = obs.REGISTRY.get("cz_kernel_calls_total")
+    return {k: calls.value(kernel=k, device="cuda") for k in ("lorenzo_encode", "lorenzo_decode")}
+
+
 def test_wrappers_count_no_launch_on_the_cpu():
-    """The counters count kernel launches only: a CPU call runs the plain
-    version and leaves both the per-wrapper and the per-side count as
+    """The launch counts count kernel launches only: a CPU call runs the
+    plain version and leaves both the per-wrapper count on the card
+    (``cz_kernel_calls_total{device="cuda"}``) and the per-side count as
     they were."""
-    before, by_side = dict(tkern.LAUNCHES), dict(tkern.LAUNCHES_BY_SIDE)
+    before, by_side = _cuda_launches(), dict(tkern.LAUNCHES_BY_SIDE)
     x = torch.from_numpy(_blocks(2, 8, seed=5))
     tkern.lorenzo_decode(tkern.lorenzo_encode(x))
-    assert tkern.LAUNCHES == before and dict(tkern.LAUNCHES_BY_SIDE) == by_side
+    assert _cuda_launches() == before and dict(tkern.LAUNCHES_BY_SIDE) == by_side
 
 
 @pytest.mark.parametrize("name", sorted(designs.VARIANTS))

@@ -94,10 +94,17 @@ def test_device_provenance_is_readable_by_the_reference():
     RSpec(**on_card).validate()
 
 
-@pytest.mark.parametrize("scheme", ["fpzipx", "auto"])
-def test_unported_schemes_raise(scheme):
-    with pytest.raises(ValueError, match=f"scheme '{scheme}' not yet ported"):
-        CompressionSpec(scheme=scheme).validate()
+@pytest.mark.parametrize("scheme,kw", [
+    ("fpzipx", dict(precision=16, block_size=16)),
+    ("auto", dict(eps=1e-4, extra={"target": "psnr=80", "tune_cache": 2})),
+])
+def test_fpzipx_and_auto_specs_match_reference(scheme, kw):
+    spec = CompressionSpec(scheme=scheme, **kw).validate()
+    ref = RSpec(scheme=scheme, **kw).validate()
+    assert spec.to_json() == ref.to_json()
+    assert json.dumps(spec.to_json()) == json.dumps(ref.to_json())
+    assert hash(spec) == hash(CompressionSpec.from_json(ref.to_json()))
+    assert hash(spec) == hash(ref)
 
 
 def test_spec_json_and_hash_match_reference():
