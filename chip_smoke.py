@@ -117,6 +117,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  at 3 levels).  Each chunk's trials (scheme, eps, nbytes,
                  max_err, psnr, admissible, error) and its ranking equal the
                  CPU's.
+   ``region_path`` random access to the 512^3 p containers that main_path,
+                 zfpx_path, lorenzo_path and auto_path wrote (kept for it):
+                 for each, ``describe(verify=True)`` and ``inspect``;
+                 ``read_field(device="cuda")`` through a MemoryStore and a
+                 RangeStore with 2 ms per request (the wavelet container
+                 also through a FileStore and an HttpStore on a loopback
+                 StaticFileServer), each bit-equal to the MemoryStore read;
+                 ``FieldReader`` boxes (one
+                 block, an unaligned box of 8 chunks, a two-plane slab of 16
+                 chunks, the whole field) on a fresh 2 ms RangeStore each,
+                 cold then warm, bit-equal to the same slice, with
+                 ``chunks_decoded`` the box's chunks; slab and field again
+                 at prefetch 4 with the same bits, requests and bytes.  Each
+                 read's launches: one decode launch per chunk decoded (none
+                 for szx chunks), none on a warm read.  Prints per container
+                 and box the cold and warm ms, the reader's fetch and decode
+                 sums, and read_field's seconds per store.
    A kernel's launch count on a path is its wrapper's
    ``cz_kernel_calls_total{device="cuda"}`` series from repro_torch.obs,
    which the wrapper adds one to where its launch succeeded and nowhere
@@ -146,7 +163,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  float32 operations over 16.7 Tops/s, its 64 int32 lanes per
                  SM).  No single PyTorch call computes any of these
                  functions, so there is no library time.  Each row also
-                 carries its launches on auto_path (``auto_path_launches``).
+                 carries its launches on auto_path (``auto_path_launches``)
+                 and on region_path (``region_path_launches``).
 
 The parity, bits and kernels lines carry their phase's seconds.  The last
 line is ``{"ok": true, "device": {...}}``.
@@ -808,6 +826,23 @@ def _zero_launches(sides: list[dict]) -> None:
         c.clear()
 
 
+# the kernels line's rows at a block side of their own, and the per-side
+# count each reads
+SIDE_ROWS = (("wavelet3d_forward_n64", "wavelet3d_forward n=64"),
+             ("wavelet3d_inverse_n64", "wavelet3d_inverse n=64"),
+             ("lorenzo_decode_n64", "lorenzo_decode n=64"),
+             ("wavelet3d_forward_n128", "wavelet3d_forward n=128"),
+             ("wavelet3d_inverse_n128", "wavelet3d_inverse n=128"))
+
+
+def _path_rows(run: dict) -> dict:
+    """Each kernels-line row's launches in one path's run: per wrapper from
+    ``launches``, and the side rows from ``launches_by_side``."""
+    rows = {k: run["launches"][k] for k in KERNEL_LABELS}
+    rows.update({row: run["launches_by_side"].get(key, 0) for row, key in SIDE_ROWS})
+    return rows
+
+
 def _tune_series() -> dict:
     """The tuner's series so far: trials per scheme, cache hits, and the
     decision-time histogram."""
@@ -842,14 +877,15 @@ def _series_delta(before: dict, after: dict) -> dict:
 def run_cli_path(tmp: str, name: str, scheme_args: list[str], spec: str, bound,
                  kernels: tuple[str, ...], sides: list[dict],
                  qois: tuple[str, ...] = ("p", "rho", "E", "a2"),
-                 recorded: str = "jax") -> dict:
+                 recorded: str = "jax", keep: str | None = None) -> dict:
     """One 512^3 snapshot through the CLI on the card, every launch count
     (per wrapper, and per wrapper and block side in ``sides``) set to 0
     just before and read just after; each of ``kernels`` must run.
     ``bound(max_abs)`` is
     the scheme's bound for a QoI of that max |x|; ``recorded`` the device
     the header must record.  Returns the footer's chunk mix per QoI and the
-    tuner's series of the run too."""
+    tuner's series of the run too.  ``keep`` is a path the run's p.cz is
+    moved to (for region_path) before the rest is removed."""
     from repro_torch.core import container
     from repro_torch.launch import compress
 
@@ -882,6 +918,9 @@ def run_cli_path(tmp: str, name: str, scheme_args: list[str], spec: str, bound,
                 key = f"{rec['scheme']} eps={rec['eps']:g}"
                 tally[key] = tally.get(key, 0) + 1
             mix[q] = tally
+    if keep:
+        os.makedirs(os.path.dirname(keep), exist_ok=True)
+        os.replace(os.path.join(out, "p.cz"), keep)
     shutil.rmtree(out, ignore_errors=True)
     res = {"n": N_MAIN, "t_us": T_MAIN, "spec": spec, "qois": list(qois),
            "generate_s": report["generate_s"], "total_s": total_s,
@@ -890,6 +929,181 @@ def run_cli_path(tmp: str, name: str, scheme_args: list[str], spec: str, bound,
         res["chunk_mix"] = mix
         res["tune"] = _series_delta(tune0, _tune_series())
     return res
+
+
+# region_path: the p containers kept from the paths, and the kernel that
+# decodes each chunk scheme (szx, like raw and fpzipx, has none)
+REGION_CONTAINERS = ("wavelet", "zfpx", "lorenzo", "auto")
+DECODE_KERNEL = {"wavelet": "wavelet3d_inverse", "zfpx": "zfpx_decode",
+                 "lorenzo": "lorenzo_decode"}
+# boxes [lo, hi) of the 512^3 field: (a) one block, (b) an unaligned box of
+# 4x4x4 blocks in 8 chunks, (c) a two-plane slab across the middle, 16
+# chunks, (d) the whole field
+REGION_BOXES = {"a_block": ((0, 0, 0), (32, 32, 32)),
+                "b_unaligned": ((37, 201, 390), (137, 301, 490)),
+                "c_slab": ((255, 0, 0), (257, 512, 512)),
+                "d_field": ((0, 0, 0), (512, 512, 512))}
+REGION_LATENCY = 0.002  # the RangeStore's per-request latency, s
+# the container also read whole through a FileStore and an HttpStore (the
+# store code is the same for every chunk scheme)
+REGION_ALL_STORES = "wavelet"
+REGION_PREFETCH = 4     # the depth held against prefetch 0 on boxes c and d
+
+
+def _reader_sums() -> dict:
+    """The sums of the reader's fetch and decode histograms so far."""
+    from repro_torch import obs
+
+    out = {}
+    for name in ("cz_reader_fetch_seconds", "cz_reader_decode_seconds"):
+        m = obs.REGISTRY.get(name)
+        out[name] = m.snapshot()["sum"] if m is not None else 0.0
+    return out
+
+
+def phase_region(files: dict, sides: list[dict]) -> tuple[dict, dict]:
+    """Random access to the 512^3 p containers on the card.  For each
+    container (wavelet, zfpx, lorenzo; auto, whose chunks are szx):
+    ``describe(verify=True)`` and ``inspect``; ``read_field(device="cuda")``
+    through a MemoryStore (the reference read) and a RangeStore with 2 ms
+    per request, and for the wavelet container also through a FileStore and
+    an HttpStore on a loopback StaticFileServer, each bit-equal to the
+    reference read; then ``FieldReader`` on a fresh RangeStore (2 ms) per
+    box, cold then warm, each bit-equal to the same slice of the reference
+    read, with ``chunks_decoded`` the box's chunks; boxes c and d again at
+    prefetch 4: the same bits, requests and bytes fetched.  Every read runs
+    with the launch counts set to 0 just before and read just after: the
+    decode kernel of each chunk's scheme launches once per chunk decoded,
+    and no kernel on a warm read.  Returns the per-container results and
+    the launches summed over every read (per wrapper, and per wrapper and
+    block side)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from repro_torch.core import container
+    from repro_torch.launch import compress
+    from repro_torch.store import backends as stores
+
+    totals = dict.fromkeys(KERNEL_LABELS, 0)
+    by_side: dict = {}
+
+    def counted(expected: dict, what: str, fn):
+        _zero_launches(sides)
+        t0 = time.perf_counter()
+        out = fn()
+        dt = time.perf_counter() - t0
+        launches = _cuda_launches()
+        want = {k: expected.get(k, 0) for k in KERNEL_LABELS}
+        check(launches == want, f"region_path {what}: launches {launches}, expected {want}")
+        for k, v in launches.items():
+            totals[k] += v
+        for c in sides:
+            for (k, n), v in c.items():
+                by_side[f"{k} n={n}"] = by_side.get(f"{k} n={n}", 0) + v
+        return out, dt, sum(launches.values())
+
+    results = {}
+    for name in REGION_CONTAINERS:
+        path = files[name]
+        d = container.describe(path, verify=True)
+        check(d["crc_ok"] is True, f"region_path {name}: describe reports a CRC mismatch")
+        schemes = [row.get("scheme", d["scheme"]) for row in d["chunks"]]
+        nchunks = len(schemes)
+
+        def expect(cis):
+            e = {}
+            for ci in cis:
+                k = DECODE_KERNEL.get(schemes[ci])
+                if k:
+                    e[k] = e.get(k, 0) + 1
+            return e
+
+        shown, code = io.StringIO(), None
+        with contextlib.redirect_stdout(shown):
+            try:
+                compress.main(["inspect", path])
+            except SystemExit as e:
+                code = e.code
+        check(code == 0, f"region_path {name}: inspect exited {code}")
+        with open(path, "rb") as fh:
+            blob = fh.read()
+        root, key = os.path.split(path)
+        mem, rng = stores.MemoryStore(), stores.RangeStore(latency=REGION_LATENCY)
+        mem.put(key, blob)
+        rng.put(key, blob)
+        read_s = {}
+        ref, read_s["mem"], _ = counted(
+            expect(range(nchunks)), f"{name} read_field over mem",
+            lambda: container.read_field(key, device="cuda", store=mem))
+        check(ref.dtype == np.float32 and ref.shape == (N_MAIN,) * 3,
+              f"region_path {name}: read_field gave {ref.dtype} {ref.shape}")
+        bits = ref.view(np.int32)
+        with contextlib.ExitStack() as stack:
+            others = [("range_2ms", rng)]
+            if name == REGION_ALL_STORES:
+                srv = stack.enter_context(stores.StaticFileServer(root))
+                others += [("file", stores.FileStore(root)),
+                           ("http", stack.enter_context(stores.HttpStore(srv.url)))]
+            for kind, st in others:
+                got, read_s[kind], _ = counted(
+                    expect(range(nchunks)), f"{name} read_field over {kind}",
+                    lambda st=st: container.read_field(key, device="cuda", store=st))
+                check(got.dtype == ref.dtype and np.array_equal(got.view(np.int32), bits),
+                      f"region_path {name}: read_field over {kind} differs from the "
+                      f"MemoryStore read")
+                del got
+        boxes = {}
+        for bname, (lo, hi) in REGION_BOXES.items():
+            want = bits[tuple(slice(a, b) for a, b in zip(lo, hi))]
+            runs = {}
+            for pf in (0, REGION_PREFETCH) if bname in ("c_slab", "d_field") else (0,):
+                st = stores.RangeStore(latency=REGION_LATENCY)
+                st.put(key, blob)
+                tag = f"{name} box {bname} prefetch {pf}"
+                with container.FieldReader(key, cache_chunks=nchunks, device="cuda", store=st,
+                                           prefetch=pf) as r:
+                    cis = r.box_chunks(lo, hi)
+                    sums0, st0 = _reader_sums(), st.stats()
+                    box, cold_s, cold_n = counted(expect(cis), f"{tag} cold",
+                                                  lambda: r.read_box(lo, hi))
+                    sums1, st1 = _reader_sums(), st.stats()
+                    check(np.array_equal(box.view(np.int32), want),
+                          f"region_path {tag}: read_box differs from the MemoryStore read")
+                    check(r.chunks_decoded == len(cis),
+                          f"region_path {tag}: {r.chunks_decoded} chunks decoded, box has {len(cis)}")
+                    hits0 = r.cache_hits
+                    box, warm_s, warm_n = counted({}, f"{tag} warm",
+                                                  lambda: r.read_box(lo, hi))
+                    check(np.array_equal(box.view(np.int32), want),
+                          f"region_path {tag}: the warm read_box differs")
+                    check(r.chunks_decoded == len(cis)
+                          and r.cache_hits - hits0 == len(r.box_blocks(lo, hi)),
+                          f"region_path {tag}: the warm read was not all cache hits")
+                    del box
+                runs[pf] = {
+                    "cold_ms": cold_s * 1e3, "warm_ms": warm_s * 1e3,
+                    "chunks_decoded": r.chunks_decoded,
+                    "launches": cold_n, "warm_launches": warm_n,
+                    **{f"{k}_sum": sums1[k] - sums0[k] for k in sums0},
+                    "get_requests": st1["get_requests"] - st0["get_requests"],
+                    "bytes_fetched": st1["bytes_fetched"] - st0["bytes_fetched"]}
+            if REGION_PREFETCH in runs:
+                a, b = runs[0], runs[REGION_PREFETCH]
+                check((a["get_requests"], a["bytes_fetched"]) == (b["get_requests"],
+                                                                  b["bytes_fetched"]),
+                      f"region_path {name} box {bname}: prefetch changed requests or bytes "
+                      f"{a} {b}")
+            boxes[bname] = {"lo": lo, "hi": hi, "chunks": len(cis), **runs.pop(0)}
+            if runs:
+                boxes[bname][f"prefetch{REGION_PREFETCH}"] = runs[REGION_PREFETCH]
+        results[name] = {"bytes": len(blob), "chunks": nchunks,
+                         "chunk_schemes": {s_: schemes.count(s_) for s_ in sorted(set(schemes))},
+                         "crc_ok": True, "inspect_exit": code,
+                         "read_field_s": read_s, "boxes": boxes}
+        del ref, bits
+    return results, {"launches": totals, "launches_by_side": by_side}
 
 
 def _max_abs_diff(got, want) -> float:
@@ -908,7 +1122,7 @@ def _bit_equal(torch, got, want) -> bool:
 
 
 def kernel_rows(torch, wv, zf, sz, ops, lkern, launches: dict,
-                auto_launches: dict) -> list[dict]:
+                auto_launches: dict, region_launches: dict) -> list[dict]:
     """One row per ported kernel at its path's shapes: the wavelet forward,
     zfpx and lorenzo encode over a QoI's 4096 blocks, the inverse, zfpx and
     lorenzo decode over one read-path chunk of 32 blocks; the wavelet
@@ -988,6 +1202,7 @@ def kernel_rows(torch, wv, zf, sz, ops, lkern, launches: dict,
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "auto_path_launches": auto_launches[name],
+            "region_path_launches": region_launches[name],
             "max_abs_err": err,
             "ms": kernel_ms(call, symbol, reps, per_call.get(name, 1)),
             "call_ms": median_ms(call, reps),
@@ -1048,9 +1263,11 @@ def main() -> int:
         t0 = time.perf_counter()
         bits = phase_bits(torch, wv, sz, ops)
         emit({"phase": "bits", "seconds": time.perf_counter() - t0, **bits})
+        region = {k: os.path.join(tmp, "region", f"{k}.cz") for k in REGION_CONTAINERS}
         main_path = run_cli_path(tmp, "main_path", [], "CompressionSpec() defaults",
                                  lambda _m: 100 * EPS,
-                                 ("wavelet3d_forward", "wavelet3d_inverse"), sides)
+                                 ("wavelet3d_forward", "wavelet3d_inverse"), sides,
+                                 keep=region["wavelet"])
         emit({"phase": "main_path", **main_path})
         block64_path = run_cli_path(tmp, "block64_path", ["--block-size", "64"],
                                     "CompressionSpec(block_size=64): w3ai, eps 1e-3, 4 "
@@ -1062,13 +1279,13 @@ def main() -> int:
                                  "CompressionSpec(scheme='zfpx'): eps 1e-3, 32^3 blocks, "
                                  "byte shuffle, zlib", lambda _m: ZFPX_BOUND,
                                  ("zfpx_encode", "zfpx_decode"), sides,
-                                 ZFPX_PATH_QOIS)
+                                 ZFPX_PATH_QOIS, keep=region["zfpx"])
         emit({"phase": "zfpx_path", **zfpx_path})
         lorenzo_path = run_cli_path(tmp, "lorenzo_path", ["--scheme", "lorenzo"],
                                     "CompressionSpec(scheme='lorenzo'): eps 1e-3, 32^3 "
                                     "blocks, byte shuffle, zlib", lorenzo_bound,
                                     ("lorenzo_encode", "lorenzo_decode"), sides,
-                                    LORENZO_PATH_QOIS)
+                                    LORENZO_PATH_QOIS, keep=region["lorenzo"])
         emit({"phase": "lorenzo_path", **lorenzo_path})
         t0 = time.perf_counter()
         fpzipx = phase_fpzipx(tmp)
@@ -1087,8 +1304,13 @@ def main() -> int:
                                  "CompressionSpec(scheme='auto', extra={'target': "
                                  "'abs=1e-3'}): 32^3 blocks, 4 MiB chunks, byte shuffle, "
                                  "zlib", auto_bound, tuple(KERNEL_LABELS), sides,
-                                 ("p",), recorded="host")
+                                 ("p",), recorded="host", keep=region["auto"])
         emit({"phase": "auto_path", **auto_path})
+        t0 = time.perf_counter()
+        region_results, region_path = phase_region(region, sides)
+        for name, res in region_results.items():
+            emit({"phase": "region_path", "container": name, **res})
+        emit({"phase": "region_path", "seconds": time.perf_counter() - t0, **region_path})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's launches on its own path
@@ -1105,17 +1327,9 @@ def main() -> int:
                      ("wavelet3d_forward_n128", "wavelet3d_forward n=128"),
                      ("wavelet3d_inverse_n128", "wavelet3d_inverse n=128")):
         launches[row] = sum(run["launches_by_side"].get(key, 0) for run in runs)
-    # each row's launches on auto_path (at the row's block side)
-    auto_side = auto_path["launches_by_side"]
-    auto_launches = {k: auto_path["launches"][k] for k in KERNEL_LABELS}
-    for row, key in (("wavelet3d_forward_n64", "wavelet3d_forward n=64"),
-                     ("wavelet3d_inverse_n64", "wavelet3d_inverse n=64"),
-                     ("lorenzo_decode_n64", "lorenzo_decode n=64"),
-                     ("wavelet3d_forward_n128", "wavelet3d_forward n=128"),
-                     ("wavelet3d_inverse_n128", "wavelet3d_inverse n=128")):
-        auto_launches[row] = auto_side.get(key, 0)
     t0 = time.perf_counter()
-    rows = kernel_rows(torch, wv, zf, sz, ops, lkern, launches, auto_launches)
+    rows = kernel_rows(torch, wv, zf, sz, ops, lkern, launches, _path_rows(auto_path),
+                       _path_rows(region_path))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     print(card, flush=True)
     emit({"kernels": rows})

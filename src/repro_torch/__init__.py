@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of the CubismZ-style compression framework (``repro``).
 
 The package mirrors ``repro``'s module layout (``core/``, ``kernels/``,
-``fields/``, ``launch/``, ``obs/``, ``tune/``) so each module's counterpart
-is found under the same relative path.  It imports neither JAX nor anything
+``fields/``, ``launch/``, ``obs/``, ``store/``, ``tune/``) so each module's
+counterpart is found under the same relative path.  It imports neither JAX nor anything
 of ``repro``: what it needs from there is copied.
 
 Entry points take an explicit torch ``device``; the card is the default.

@@ -32,9 +32,10 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import itertools
+import json
 import threading
 import time
-from typing import Iterator
+from typing import Any, Iterator
 
 import numpy as np
 import torch
@@ -43,7 +44,7 @@ from repro_torch import DEFAULT_DEVICE, obs
 from repro_torch.obs import trace
 
 from . import blocks as blk
-from . import lossless
+from . import lossless, metrics
 from .schemes import (Scheme, check_device, get_scheme, resolved_device,
                       torch_device)
 
@@ -169,6 +170,10 @@ class CompressedField:
         self.header = header
 
     @property
+    def nbytes(self) -> int:
+        return sum(len(c) for c in self.chunks) + len(json.dumps(self.header))
+
+    @property
     def spec(self) -> CompressionSpec:
         return CompressionSpec.from_json(self.header["spec"])
 
@@ -224,17 +229,23 @@ class Pipeline:
 
     # -- compression -------------------------------------------------------
 
-    def iter_chunks(self, blocks, records: list | None = None
-                    ) -> Iterator[tuple[bytes, int]]:
+    def iter_chunks(self, blocks, workers: int | None = None,
+                    executor: concurrent.futures.Executor | None = None,
+                    records: list | None = None) -> Iterator[tuple[bytes, int]]:
         """Yield ``(chunk_bytes, n_blocks)`` one aggregation buffer at a time.
 
         Substage 1 runs once over the whole batch on the device; its host
         streams stay resident for the generator's lifetime, while
         serialization and substage 2 stream chunk by chunk.
 
+        With ``workers > 1`` (default: the pipeline's own ``workers``) or an
+        external ``executor``, chunk encoding is submitted to the pool a
+        bounded window ahead while results are yielded strictly in order, so
+        the byte stream is the serial path's.
+
         ``records`` (a caller-owned list) collects each chunk's
         :meth:`Scheme.chunk_record` in chunk order, ``None`` where the scheme
-        records nothing, under ``workers > 1`` too.
+        records nothing, threaded or not.
         """
         spec = self.spec
         blocks = self.as_tensor(blocks)
@@ -263,30 +274,31 @@ class Pipeline:
                 records.append(rec)
             return chunk, n
 
-        nworkers = self.workers
-        if nworkers <= 1:
+        nworkers = self.workers if workers is None else max(1, int(workers))
+        if executor is None and nworkers <= 1:
             for ci, lo, hi in ranges:
                 yield emit(*encode(ci, lo, hi), hi - lo)
             return
 
-        with concurrent.futures.ThreadPoolExecutor(nworkers) as pool:
+        own_pool = executor is None
+        pool = executor or concurrent.futures.ThreadPoolExecutor(nworkers)
+        try:
             # keep at most ~2x workers chunks in flight: parallelism without
             # materializing the whole compressed chunk list
             it = iter(ranges)
             pending = collections.deque(
                 (r, pool.submit(encode, *r))
                 for r in itertools.islice(it, 2 * nworkers))
-            try:
-                while pending:
-                    (_ci, lo, hi), fut = pending.popleft()
-                    nxt = next(it, None)
-                    if nxt is not None:
-                        pending.append((nxt, pool.submit(encode, *nxt)))
-                    # the one ordered drain appends records in chunk order
-                    yield emit(*fut.result(), hi - lo)
-            finally:
-                for _r, fut in pending:
-                    fut.cancel()
+            while pending:
+                (_ci, lo, hi), fut = pending.popleft()
+                nxt = next(it, None)
+                if nxt is not None:
+                    pending.append((nxt, pool.submit(encode, *nxt)))
+                # the one ordered drain appends records in chunk order
+                yield emit(*fut.result(), hi - lo)
+        finally:
+            if own_pool:
+                pool.shutdown(wait=True, cancel_futures=True)
 
     def compress_blocks(self, blocks, extra_header: dict | None = None
                         ) -> CompressedField:
@@ -361,3 +373,20 @@ class Pipeline:
         if shape is None:
             return blocks_np
         return blk.unblockify(blocks_np, tuple(shape))
+
+    # -- analysis ----------------------------------------------------------
+
+    def analyze(self, field) -> dict[str, Any]:
+        """Compress + decompress + measure (CR, PSNR, max error), with the
+        reference's keys; ``field`` is numpy or a tensor."""
+        comp = self.compress_field(field)
+        dec = self.decompress(comp)
+        x = field.cpu().numpy() if isinstance(field, torch.Tensor) else np.asarray(field)
+        return {
+            "cr": metrics.compression_ratio(comp.header["raw_bytes"], comp.nbytes),
+            "psnr": metrics.psnr(x, dec),
+            "max_err": float(np.max(np.abs(x - dec))),
+            "comp_bytes": comp.nbytes,
+            "raw_bytes": comp.header["raw_bytes"],
+            "spec": self.spec,
+        }

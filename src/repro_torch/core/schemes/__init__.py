@@ -12,11 +12,15 @@ Each scheme is a self-describing object that owns
 
 All seven of the reference's schemes are registered: ``wavelet``,
 ``zfpx``, ``lorenzo``, ``szx``, ``fpzipx``, ``raw`` and the ``auto``
-meta-scheme, which picks one of the others per chunk.
+meta-scheme, which picks one of the others per chunk.  Third-party
+schemes register with :func:`register_scheme` (and leave with
+:func:`unregister_scheme`); ``SCHEMES`` is a live, read-only view of the
+registry that iterates names.
 """
 from __future__ import annotations
 
 import abc
+from collections.abc import Mapping
 from typing import TYPE_CHECKING
 
 import numpy as np
@@ -28,7 +32,8 @@ from ._device import DEVICES, check_device, resolved_device, torch_device
 if TYPE_CHECKING:  # avoid a runtime cycle with repro_torch.core.pipeline
     from ..pipeline import CompressionSpec
 
-__all__ = ["Scheme", "register_scheme", "get_scheme", "scheme_names",
+__all__ = ["Scheme", "SCHEMES", "register_scheme", "unregister_scheme",
+           "get_scheme", "scheme_names",
            "shuffle_bytes", "unshuffle_bytes", "DEVICES", "check_device",
            "resolved_device", "torch_device"]
 
@@ -129,6 +134,10 @@ def register_scheme(cls: type) -> type:
     return cls
 
 
+def unregister_scheme(name: str) -> None:
+    _REGISTRY.pop(name, None)
+
+
 def get_scheme(name: str) -> Scheme:
     try:
         return _REGISTRY[name]
@@ -141,6 +150,29 @@ def get_scheme(name: str) -> Scheme:
 def scheme_names() -> list[str]:
     """Registered scheme names, sorted."""
     return sorted(_REGISTRY)
+
+
+class _SchemesView(Mapping):
+    """Live, read-only view of the registry.  Iterates scheme names, so both
+    ``"wavelet" in SCHEMES`` and ``for name in SCHEMES`` work."""
+
+    def __getitem__(self, name: str) -> Scheme:
+        return get_scheme(name)
+
+    def __iter__(self):
+        return iter(_REGISTRY)
+
+    def __len__(self) -> int:
+        return len(_REGISTRY)
+
+    def __contains__(self, name) -> bool:
+        return name in _REGISTRY
+
+    def __repr__(self) -> str:
+        return f"SCHEMES({', '.join(sorted(_REGISTRY))})"
+
+
+SCHEMES = _SchemesView()
 
 
 # Built-in schemes self-register on import.  ``auto`` comes last: the

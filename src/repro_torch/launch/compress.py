@@ -18,6 +18,10 @@ Examples:
   python -m repro_torch.launch.compress --list-schemes
   python -m repro_torch.launch.compress --decompress artifacts/fields/p.cz \
       --verify-against p.npy
+  python -m repro_torch.launch.compress inspect artifacts/fields/p.cz
+  python -m repro_torch.launch.compress inspect --json artifacts/fields/p.cz
+  python -m repro_torch.launch.compress stats metrics.txt
+  python -m repro_torch.launch.compress stats --diff a.json b.json
 
 ``--scheme auto`` picks the best registered scheme per chunk for the quality
 target ``--target`` (``abs=V``, ``rel=V`` or ``psnr=DB``; default
@@ -25,6 +29,15 @@ target ``--target`` (``abs=V``, ``rel=V`` or ``psnr=DB``; default
 matching statistics.  ``--trace OUT.json`` writes a Chrome trace of the
 run's spans (stage 1, each chunk's encode and decode, trials, kernel
 calls), viewable in Perfetto.
+
+``inspect PATH`` prints a container's header, chunk table and CRC verdicts
+(``--json``: the same as one JSON document, ``container.describe``);
+``stats [SOURCE]`` pretty-prints a metrics snapshot (a running server's
+``/metrics``, a file of Prometheus text, ``-`` for stdin, or this process's
+registry), ``--diff A B`` the delta of two JSON snapshots.  Both print what
+the reference's ``cz-compress inspect`` and ``stats`` print.  Dataset roots
+(a directory or a store URL) and ``inspect --stats`` need the dataset
+layer, which the port does not have yet.
 
 The containers are readable by the reference (``repro``) and vice versa.
 """
@@ -40,7 +53,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import DEFAULT_DEVICE
+from repro_torch import DEFAULT_DEVICE, obs
 from repro_torch.core import container
 from repro_torch.core.metrics import compression_ratio, psnr
 from repro_torch.core.pipeline import STAGE_SECONDS, CompressionSpec
@@ -82,10 +95,234 @@ def _tune_extra(ap: argparse.ArgumentParser, args) -> dict:
     return extra
 
 
+def _is_dataset_root(path: str) -> bool:
+    """Store URLs are always dataset roots; plain paths are roots iff they
+    are directories (a file path is a single .cz container)."""
+    return "://" in path or os.path.isdir(path)
+
+
+def _inspect_container(path: str, verify: bool = True) -> bool:
+    """Print a CZ container's self-description; returns the CRC verdict."""
+    d = container.describe(path, verify=verify)
+    magic = container.MAGIC_V1 if d["container"] == "CZ1" else container.MAGIC
+    print(path)
+    print(f"  magic        {magic!r}  (container "
+          f"{'CZ1 legacy' if d['container'] == 'CZ1' else 'CZ2'}, "
+          f"chunk format {d['format']})")
+    print(f"  scheme       {d['scheme']}  params {d['scheme_params']}")
+    if d.get("schemes"):
+        mix = "  ".join(f"{name} x{cnt}" for name, cnt in d["schemes"].items())
+        print(f"  chunk mix    {mix}")
+    print(f"  dtype        {d['dtype']}")
+    shape = d["field_shape"] if d["field_shape"] is not None else "(block batch)"
+    print(f"  field_shape  {shape}  "
+          f"nblocks {d['nblocks']}  block_size {d['block_size']}")
+    if d["raw_bytes"]:
+        print(f"  bytes        {d['compressed_bytes']} compressed / "
+              f"{d['raw_bytes']} raw "
+              f"(CR {d['raw_bytes']/max(1, d['compressed_bytes']):.2f}x)")
+    ok = True
+    mixed = bool(d.get("schemes"))
+    scheme_col = f" {'scheme':>8}" if mixed else ""
+    print(f"  {'chunk':>5} {'blocks':>7} {'bytes':>10}{scheme_col}  crc32")
+    for row in d["chunks"]:
+        crc = row["crc32"]
+        if crc is None:
+            verdict = "-"
+        elif not verify:
+            verdict = f"{crc:08x}"
+        else:
+            good = row["crc_ok"]
+            ok &= good
+            verdict = f"{crc:08x} {'ok' if good else 'MISMATCH'}"
+        col = f" {row.get('scheme', '?'):>8}" if mixed else ""
+        print(f"  {row['index']:>5} {row['blocks']:>7} {row['bytes']:>10}"
+              f"{col}  {verdict}")
+    print(f"  CRC verify   {'ok' if ok else 'FAILED'}")
+    return ok
+
+
+def _inspect_json(path: str, verify: bool) -> int:
+    """Machine-readable inspect: ``container.describe`` as one document."""
+    out = container.describe(path, verify=verify)
+    json.dump(out, sys.stdout, indent=1)
+    print()
+    return 1 if verify and out.get("crc_ok") is False else 0
+
+
+def inspect_main(argv) -> int:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.compress inspect")
+    ap.add_argument("path", help="a .cz container")
+    ap.add_argument("--no-verify", action="store_true",
+                    help="print CRCs without re-reading chunk data")
+    ap.add_argument("--stats", action="store_true",
+                    help="per-member CR/PSNR table for a dataset root (needs "
+                    "the dataset layer, not ported yet)")
+    ap.add_argument("--json", action="store_true",
+                    help="machine-readable output: the container's header and "
+                    "chunk table as one JSON document on stdout")
+    args = ap.parse_args(argv)
+    if args.stats or _is_dataset_root(args.path):
+        what = "--stats" if args.stats else f"{args.path!r} is a dataset root:"
+        ap.error(f"{what} dataset roots need CZDataset, which the port does not "
+                 "have yet (ROADMAP §1 item 5); inspect takes one .cz container")
+    if args.json:
+        return _inspect_json(args.path, not args.no_verify)
+    return 0 if _inspect_container(args.path, not args.no_verify) else 1
+
+
+def _stats_fetch(source: str | None) -> str:
+    """One metrics snapshot as Prometheus text, from any stats source."""
+    if source is None:
+        return obs.render()
+    if source.startswith(("http://", "https://")):
+        from urllib.request import urlopen
+
+        with urlopen(source.rstrip("/") + "/metrics") as r:
+            return r.read().decode()
+    if source == "-":
+        return sys.stdin.read()
+    with open(source) as f:
+        return f.read()
+
+
+def _metrics_table(samples: dict, buckets: bool) -> str:
+    width = max((len(n) for n in samples), default=10)
+    lines = []
+    for name, rows in samples.items():
+        if not buckets and name.endswith("_bucket"):
+            continue
+        for lbl, val in rows:
+            ls = ",".join(f"{k}={v}" for k, v in lbl.items())
+            ls = f"{{{ls}}}" if ls else ""
+            v = int(val) if float(val).is_integer() else round(val, 6)
+            lines.append(f"{name:<{width}} {ls:<28} {v}")
+    return "\n".join(lines)
+
+
+def _stats_flatten(doc: dict) -> dict:
+    """Normalize any saved snapshot shape into ``{(name, labelstr): value}``:
+    ``stats --json`` output, a raw :func:`repro_torch.obs.snapshot` dump,
+    or a bench record (its registry dump under ``"registry"``).  Histogram
+    samples flatten to ``name_count`` / ``name_sum`` entries."""
+    if isinstance(doc.get("registry"), dict) and "schema" in doc:
+        doc = doc["registry"]  # a bench record
+    out: dict[tuple[str, str], float] = {}
+    for name, val in doc.items():
+        rows = val.get("samples") if isinstance(val, dict) else val
+        if not isinstance(rows, list):
+            continue
+        for row in rows:
+            if not isinstance(row, dict):
+                continue
+            lbl = row.get("labels") or {}
+            key = ",".join(f"{k}={v}" for k, v in sorted(lbl.items()))
+            if "value" in row:
+                out[(name, key)] = float(row["value"])
+            else:  # histogram sample: count + sum are the comparable scalars
+                out[(f"{name}_count", key)] = float(row.get("count", 0))
+                out[(f"{name}_sum", key)] = float(row.get("sum", 0.0))
+    return out
+
+
+def _stats_diff(path_a: str, path_b: str, as_json: bool) -> int:
+    """``stats --diff A.json B.json``: what changed between two snapshots."""
+    with open(path_a) as f:
+        a = _stats_flatten(json.load(f))
+    with open(path_b) as f:
+        b = _stats_flatten(json.load(f))
+    rows = []
+    for key in sorted(set(a) | set(b)):
+        va, vb = a.get(key), b.get(key)
+        delta = (vb or 0.0) - (va or 0.0)
+        if delta == 0.0 and va is not None and vb is not None:
+            continue  # unchanged — noise in a delta report
+        rows.append({"name": key[0], "labels": key[1], "a": va, "b": vb,
+                     "delta": delta})
+    if as_json:
+        json.dump({"a": path_a, "b": path_b, "changed": rows}, sys.stdout, indent=1)
+        print()
+        return 0
+    if not rows:
+        print("no differences")
+        return 0
+    width = max(len(r["name"]) for r in rows)
+
+    def fmt(v):
+        if v is None:
+            return "-"
+        return str(int(v)) if float(v).is_integer() else f"{v:.6g}"
+
+    for r in rows:
+        ls = f"{{{r['labels']}}}" if r["labels"] else ""
+        sign = "+" if r["delta"] >= 0 else ""
+        print(f"{r['name']:<{width}} {ls:<28} "
+              f"{fmt(r['a'])} -> {fmt(r['b'])}  ({sign}{fmt(r['delta'])})")
+    return 0
+
+
+def stats_main(argv) -> int:
+    """Pretty-print a metrics snapshot: a server's ``/metrics``, saved
+    exposition text, or this process's registry — optionally live
+    (``--watch``) or as the delta of two saved snapshots (``--diff``)."""
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.compress stats",
+        description="Pretty-print a cz_* metrics snapshot.  SOURCE is an "
+                    "http(s)://host:port of a running server (its /metrics is "
+                    "fetched), a file of Prometheus text, or '-' for stdin; "
+                    "omitted = this process's registry.")
+    ap.add_argument("source", nargs="?")
+    ap.add_argument("--json", action="store_true",
+                    help="machine-readable JSON instead of the table")
+    ap.add_argument("--buckets", action="store_true",
+                    help="include histogram bucket rows")
+    ap.add_argument("--watch", type=float, metavar="SECS",
+                    help="redraw the table every SECS seconds until Ctrl-C")
+    ap.add_argument("--diff", nargs=2, metavar=("A.json", "B.json"),
+                    help="print the metric delta between two JSON snapshots "
+                         "(stats --json output or bench records) and exit")
+    args = ap.parse_args(argv)
+
+    if args.diff:
+        return _stats_diff(args.diff[0], args.diff[1], args.json)
+
+    if args.watch:
+        if args.source == "-":
+            ap.error("--watch cannot re-read stdin; give a URL or file")
+        if args.watch <= 0:
+            ap.error("--watch needs a positive interval")
+        try:
+            while True:
+                samples = obs.parse_prometheus(_stats_fetch(args.source))
+                table = _metrics_table(samples, args.buckets)
+                # clear screen + home, then one coherent frame
+                sys.stdout.write(
+                    f"\x1b[2J\x1b[H{args.source or '(process registry)'}  "
+                    f"every {args.watch:g}s  (Ctrl-C to stop)\n{table}\n")
+                sys.stdout.flush()
+                time.sleep(args.watch)
+        except KeyboardInterrupt:
+            return 0
+
+    samples = obs.parse_prometheus(_stats_fetch(args.source))
+    if args.json:
+        json.dump({name: [{"labels": lbl, "value": val} for lbl, val in rows]
+                   for name, rows in samples.items()}, sys.stdout, indent=1)
+        print()
+        return 0
+    print(_metrics_table(samples, args.buckets))
+    return 0
+
+
 def main(argv=None) -> dict | None:
     """Run the CLI; returns the report it writes to ``report.json`` (``None``
-    for ``--decompress``)."""
+    for ``--decompress``).  The subcommands ``inspect`` and ``stats`` exit
+    with their status, as the reference's do."""
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "inspect":
+        raise SystemExit(inspect_main(argv[1:]))
+    if argv and argv[0] == "stats":
+        raise SystemExit(stats_main(argv[1:]))
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.compress")
     ap.add_argument("--source", default="cavitation", choices=["cavitation", "npy"])
     ap.add_argument("--npy", default="", help="input .npy for --source npy")

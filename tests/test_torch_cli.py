@@ -161,3 +161,167 @@ def test_cli_tune_flags_need_scheme_auto(tmp_path, capsys):
         compress.main(["--device", "cpu", "--target", "abs=1e-3", "--out", str(tmp_path)])
     assert exc.value.code == 2
     assert "only apply to --scheme auto" in capsys.readouterr().err
+
+
+def _cli(module, args, stdin=None, monkeypatch=None):
+    """Run a CLI's ``main`` in this process: (exit code, stdout, stderr)."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    code = 0
+    if stdin is not None:
+        monkeypatch.setattr(sys, "stdin", io.StringIO(stdin))
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            module.main(args)
+        except SystemExit as e:
+            code = e.code
+    return code, out.getvalue(), err.getvalue()
+
+
+def _inspect_files(tmp_path):
+    """Every committed fixture, and a small auto file and a block batch
+    written by the port."""
+    data = ROOT / "tests" / "data"
+    files = sorted(str(p) for p in data.glob("*.cz"))
+    f = tcavitation_fields(TCloudConfig(n=16), 9.4, device="cpu")["p"].numpy()
+    files.append(str(tmp_path / "auto.cz"))
+    tcont.write_field(files[-1], f, CompressionSpec(scheme="auto", block_size=8,
+                                                    buffer_bytes=1 << 12), device="cpu")
+    files.append(str(tmp_path / "blocks.cz"))
+    tcont.write_compressed(files[-1], f.reshape(-1, 8, 8, 8),
+                           CompressionSpec(scheme="raw", block_size=8), device="cpu")
+    return files
+
+
+@pytest.mark.parametrize("flags", [[], ["--no-verify"], ["--json"], ["--json", "--no-verify"]],
+                         ids=["text", "no-verify", "json", "json-no-verify"])
+def test_inspect_prints_what_the_reference_prints(tmp_path, flags):
+    """``inspect`` of a container: the reference CLI's output, character for
+    character, and its exit code; a corrupt chunk fails both alike."""
+    from repro.launch import compress as rcompress
+
+    files = _inspect_files(tmp_path)
+    bad = tmp_path / "bad.cz"
+    blob = bytearray((ROOT / "tests" / "data" / "cz2_zfpx.cz").read_bytes())
+    blob[20] ^= 0xFF  # inside the first chunk
+    bad.write_bytes(bytes(blob))
+    for path in [*files, str(bad)]:
+        got = _cli(compress, ["inspect", *flags, path])
+        want = _cli(rcompress, ["inspect", *flags, path])
+        assert got == want, path
+        verifying = "--no-verify" not in flags
+        assert got[0] == (1 if path == str(bad) and verifying else 0)
+    if "--json" in flags:
+        doc = json.loads(_cli(compress, ["inspect", *flags, files[-2]])[1])
+        assert doc["schemes"] and doc["scheme"] == "auto"
+
+
+@pytest.mark.parametrize("args", [["DIR"], ["URL"], ["--stats", "FILE"], ["--json", "DIR"]],
+                         ids=["directory", "url", "stats", "json-directory"])
+def test_inspect_refuses_dataset_roots(tmp_path, args):
+    """Dataset roots and ``--stats`` need the dataset layer: a usage error
+    (exit 2) that names the roadmap item."""
+    path = {"DIR": str(tmp_path), "URL": "mem://ds",
+            "FILE": str(ROOT / "tests" / "data" / "cz2_zfpx.cz")}
+    code, out, err = _cli(compress, ["inspect", *[path.get(a, a) for a in args]])
+    assert code == 2 and out == ""
+    assert "ROADMAP §1 item 5" in err and "CZDataset" in err
+
+
+METRICS_TEXT = """\
+# HELP cz_serve_queries_total Region queries.
+# TYPE cz_serve_queries_total counter
+cz_serve_queries_total{kind="region",status="ok"} 12
+cz_serve_queries_total{kind="region",status="error"} 1
+# HELP cz_store_op_seconds Store operation latency.
+# TYPE cz_store_op_seconds histogram
+cz_store_op_seconds_bucket{backend="file",op="get",le="0.001"} 3
+cz_store_op_seconds_bucket{backend="file",op="get",le="+Inf"} 4
+cz_store_op_seconds_sum{backend="file",op="get"} 0.0123456789
+cz_store_op_seconds_count{backend="file",op="get"} 4
+# HELP cz_up Up.
+# TYPE cz_up gauge
+cz_up 1
+"""
+
+
+@pytest.mark.parametrize("flags", [[], ["--json"], ["--buckets"], ["--json", "--buckets"]],
+                         ids=["table", "json", "buckets", "json-buckets"])
+@pytest.mark.parametrize("source", ["file", "stdin"])
+def test_stats_prints_what_the_reference_prints(tmp_path, monkeypatch, flags, source):
+    from repro.launch import compress as rcompress
+
+    path = tmp_path / "m.txt"
+    path.write_text(METRICS_TEXT)
+    arg = str(path) if source == "file" else "-"
+    stdin = METRICS_TEXT if source == "stdin" else None
+    got = _cli(compress, ["stats", arg, *flags], stdin, monkeypatch)
+    want = _cli(rcompress, ["stats", arg, *flags], stdin, monkeypatch)
+    assert got == want
+    assert got[0] == 0 and "cz_serve_queries_total" in got[1]
+    if "--json" not in flags:  # JSON holds every sample
+        assert ("cz_store_op_seconds_bucket" in got[1]) == ("--buckets" in flags)
+
+
+def test_stats_of_the_process_registry_and_the_diff(tmp_path):
+    """``stats`` with no source renders this process's registry (the port's
+    series); ``--diff`` of two snapshots, as text and JSON, prints what the
+    reference prints."""
+    from repro.launch import compress as rcompress
+    from repro_torch import obs as tobs
+
+    tobs.counter("cz_torch_cli_probe_total", "A probe.").inc(3)
+    code, out, _ = _cli(compress, ["stats"])
+    assert code == 0 and "cz_torch_cli_probe_total" in out
+    code, out, _ = _cli(compress, ["stats", "--json"])
+    a = tmp_path / "a.json"
+    a.write_text(out)
+    tobs.REGISTRY.get("cz_torch_cli_probe_total").inc(2)
+    b = tmp_path / "b.json"
+    b.write_text(_cli(compress, ["stats", "--json"])[1])
+    snap = tmp_path / "snap.json"
+    snap.write_text(json.dumps({"schema": 1, "registry": tobs.snapshot()}))
+    for pair in ((a, b), (b, a), (a, a), (a, snap)):
+        for flags in ([], ["--json"]):
+            args = ["stats", "--diff", str(pair[0]), str(pair[1]), *flags]
+            got = _cli(compress, args)
+            assert got == _cli(rcompress, args)
+            assert got[0] == 0
+    text = _cli(compress, ["stats", "--diff", str(a), str(b)])[1]
+    assert "cz_torch_cli_probe_total" in text and "3 -> 5  (+2)" in text
+    assert _cli(compress, ["stats", "--diff", str(a), str(a)])[1] == "no differences\n"
+
+
+@pytest.mark.parametrize("args", [["-", "--watch", "1"], ["FILE", "--watch", "-1"]])
+def test_stats_watch_refuses_as_the_reference(tmp_path, args):
+    from repro.launch import compress as rcompress
+
+    (tmp_path / "m.txt").write_text(METRICS_TEXT)
+    args = ["stats", *[str(tmp_path / "m.txt") if a == "FILE" else a for a in args]]
+    got, want = _cli(compress, args), _cli(rcompress, args)
+    assert got[0] == want[0] == 2 and got[1] == want[1] == ""
+    assert got[2].splitlines()[-1].split(": ", 2)[-1] == want[2].splitlines()[-1].split(": ", 2)[-1]
+
+
+def test_decompress_reads_through_the_store(tmp_path, capsys, monkeypatch):
+    """``--decompress`` goes through the store-backed ``read_field``: a file
+    store on the file's directory, byte-range gets only."""
+    from repro_torch.store import backends as tb
+
+    f = tcavitation_fields(TCloudConfig(n=16), 9.4, device="cpu")["rho"].numpy()
+    path = tmp_path / "rho.cz"
+    tcont.write_field(str(path), f, CompressionSpec(scheme="lorenzo", block_size=8), device="cpu")
+    gets = []
+    real = tb.FileStore.get
+
+    def spy(self, key, byte_range=None):
+        gets.append((self.root, key, byte_range))
+        return real(self, key, byte_range)
+
+    monkeypatch.setattr(tb.FileStore, "get", spy)
+    assert compress.main(["--device", "cpu", "--decompress", str(path)]) is None
+    assert "decompressed (16, 16, 16)" in capsys.readouterr().out
+    assert gets and all(r == str(tmp_path) and k == "rho.cz" and rng is not None
+                        for r, k, rng in gets)

@@ -30,7 +30,12 @@ NEW_MODULES = ("repro_torch.obs", "repro_torch.obs.registry", "repro_torch.obs.c
                "repro_torch.tune", "repro_torch.tune.bound", "repro_torch.tune.trial",
                "repro_torch.tune.policy", "repro_torch.core.fpzipx",
                "repro_torch.core.schemes.fpzipx", "repro_torch.core.schemes.auto",
-               "repro_torch.kernels._obs")
+               "repro_torch.kernels._obs", "repro_torch.core.codec", "repro_torch.store",
+               "repro_torch.store.backends", "repro_torch.store.backends.base",
+               "repro_torch.store.backends.memory", "repro_torch.store.backends.file",
+               "repro_torch.store.backends.object", "repro_torch.store.backends.instrument",
+               "repro_torch.store.backends.retry", "repro_torch.store.backends.flaky",
+               "repro_torch.store.backends.http")
 
 
 def test_new_modules_are_in_the_import_check():
