@@ -134,6 +134,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  for szx chunks), none on a warm read.  Prints per container
                  and box the cold and warm ms, the reader's fetch and decode
                  sums, and read_field's seconds per store.
+   ``dataset_path`` the dataset store (``repro_torch.store.CZDataset``), run
+                 after auto_trials on the 512^3 p it left on the card
+                 (copied to the host once: ``append`` takes numpy): one
+                 append at t = 9.4 us, default spec, ``stats=True``,
+                 ``device="cuda"``, into a new FileStore dataset at
+                 ``workers=1`` and another at ``workers=4``.  The two members
+                 are byte-identical and have the chunk bytes of main_path's
+                 p; the manifests' psnr and max_err are equal, max_err <=
+                 100 eps.  Each append launches the forward once and the
+                 inverse once per chunk (128: the stats decode).  Then
+                 ``read_box`` of region_path's unaligned box (8 chunks)
+                 through ``CZDataset`` on a RangeStore (2 ms per request)
+                 holding the second dataset's keys, cold then warm: bit-equal
+                 to ``FieldReader`` on main_path's p, 8 inverse launches
+                 cold and none warm, ``ds.stats()`` agreeing.  Then the CLI
+                 in-process on the first dataset: ``inspect``, ``--stats``,
+                 ``--json``; an orphaned member and a ``.tmp`` planted,
+                 ``gc --dry-run`` lists exactly them, ``gc`` deletes them,
+                 and a second dry run finds the dataset clean.  Prints each
+                 append's seconds with its stage seconds (summed over the
+                 pool's threads) and the stats decode's, the wall seconds
+                 of its steps from a trace of the append (the member's
+                 write, with its stage 1 and encodes; the stats read, with
+                 its decodes; the psnr/max_err pass; the manifest's
+                 commit), the host's CPU count and affinity, and the box's
+                 cold and warm ms.
    A kernel's launch count on a path is its wrapper's
    ``cz_kernel_calls_total{device="cuda"}`` series from repro_torch.obs,
    which the wrapper adds one to where its launch succeeded and nowhere
@@ -163,8 +189,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  float32 operations over 16.7 Tops/s, its 64 int32 lanes per
                  SM).  No single PyTorch call computes any of these
                  functions, so there is no library time.  Each row also
-                 carries its launches on auto_path (``auto_path_launches``)
-                 and on region_path (``region_path_launches``).
+                 carries its launches on auto_path (``auto_path_launches``),
+                 region_path (``region_path_launches``) and dataset_path
+                 (``dataset_path_launches``).
 
 The parity, bits and kernels lines carry their phase's seconds.  The last
 line is ``{"ok": true, "device": {...}}``.
@@ -172,6 +199,8 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -961,6 +990,48 @@ def _reader_sums() -> dict:
     return out
 
 
+def cli(*argv) -> tuple[int, str]:
+    """The port's CLI (``repro_torch.launch.compress.main``) run in-process
+    on ``argv``: its exit code and what it printed."""
+    from repro_torch.launch import compress
+
+    shown, code = io.StringIO(), None
+    with contextlib.redirect_stdout(shown):
+        try:
+            compress.main(list(argv))
+        except SystemExit as e:
+            code = e.code
+    return code, shown.getvalue()
+
+
+def _launch_counter(phase: str, sides: list[dict]):
+    """``counted(expected, what, fn)`` for one phase: runs ``fn`` with every
+    launch count set to 0 just before, checks the launches read just after
+    against ``expected`` (per kernel row; absent rows 0) and adds them to
+    the phase's totals.  It returns ``fn``'s value, its seconds and the
+    launches in all.  The totals (per wrapper, and per wrapper and block
+    side) come back beside ``counted``, in the shape ``_path_rows`` reads."""
+    totals = dict.fromkeys(KERNEL_LABELS, 0)
+    by_side: dict = {}
+
+    def counted(expected: dict, what: str, fn):
+        _zero_launches(sides)
+        t0 = time.perf_counter()
+        out = fn()
+        dt = time.perf_counter() - t0
+        launches = _cuda_launches()
+        want = {k: expected.get(k, 0) for k in KERNEL_LABELS}
+        check(launches == want, f"{phase} {what}: launches {launches}, expected {want}")
+        for k, v in launches.items():
+            totals[k] += v
+        for c in sides:
+            for (k, n), v in c.items():
+                by_side[f"{k} n={n}"] = by_side.get(f"{k} n={n}", 0) + v
+        return out, dt, sum(launches.values())
+
+    return counted, {"launches": totals, "launches_by_side": by_side}
+
+
 def phase_region(files: dict, sides: list[dict]) -> tuple[dict, dict]:
     """Random access to the 512^3 p containers on the card.  For each
     container (wavelet, zfpx, lorenzo; auto, whose chunks are szx):
@@ -977,32 +1048,12 @@ def phase_region(files: dict, sides: list[dict]) -> tuple[dict, dict]:
     and no kernel on a warm read.  Returns the per-container results and
     the launches summed over every read (per wrapper, and per wrapper and
     block side)."""
-    import contextlib
-    import io
-
     import numpy as np
 
     from repro_torch.core import container
-    from repro_torch.launch import compress
     from repro_torch.store import backends as stores
 
-    totals = dict.fromkeys(KERNEL_LABELS, 0)
-    by_side: dict = {}
-
-    def counted(expected: dict, what: str, fn):
-        _zero_launches(sides)
-        t0 = time.perf_counter()
-        out = fn()
-        dt = time.perf_counter() - t0
-        launches = _cuda_launches()
-        want = {k: expected.get(k, 0) for k in KERNEL_LABELS}
-        check(launches == want, f"region_path {what}: launches {launches}, expected {want}")
-        for k, v in launches.items():
-            totals[k] += v
-        for c in sides:
-            for (k, n), v in c.items():
-                by_side[f"{k} n={n}"] = by_side.get(f"{k} n={n}", 0) + v
-        return out, dt, sum(launches.values())
+    counted, launched = _launch_counter("region_path", sides)
 
     results = {}
     for name in REGION_CONTAINERS:
@@ -1020,12 +1071,7 @@ def phase_region(files: dict, sides: list[dict]) -> tuple[dict, dict]:
                     e[k] = e.get(k, 0) + 1
             return e
 
-        shown, code = io.StringIO(), None
-        with contextlib.redirect_stdout(shown):
-            try:
-                compress.main(["inspect", path])
-            except SystemExit as e:
-                code = e.code
+        code, _shown = cli("inspect", path)
         check(code == 0, f"region_path {name}: inspect exited {code}")
         with open(path, "rb") as fh:
             blob = fh.read()
@@ -1103,7 +1149,189 @@ def phase_region(files: dict, sides: list[dict]) -> tuple[dict, dict]:
                          "crc_ok": True, "inspect_exit": code,
                          "read_field_s": read_s, "boxes": boxes}
         del ref, bits
-    return results, {"launches": totals, "launches_by_side": by_side}
+    return results, launched
+
+
+# dataset_path: the worker counts of the two appends, and the box read back
+# through the dataset (region_path's unaligned box: 8 chunks)
+DATASET_WORKERS = (1, 4)
+DATASET_BOX = "b_unaligned"
+
+
+DATASET_SPANS = ("dataset.write", "stage1", "encode", "dataset.stats_read", "decode",
+                 "dataset.member_stats", "dataset.commit")
+
+
+def _span_walls(events: list[dict]) -> dict:
+    """Wall seconds from the first start to the last end of each span in
+    ``DATASET_SPANS`` (an append's steps, and within them the pipeline's
+    ``stage1`` and the chunks' ``encode`` and ``decode``, across threads)
+    in one append's trace events."""
+    walls = {}
+    for name in DATASET_SPANS:
+        evs = [e for e in events if e["name"] == name]
+        check(bool(evs), f"no {name} span in the trace")
+        walls[name] = (max(e["ts"] + e["dur"] for e in evs) - min(e["ts"] for e in evs)) / 1e6
+    return walls
+
+
+def phase_dataset(tmp: str, p512, wavelet_file: str, sides: list[dict]) -> dict:
+    """The dataset store on the card: the 512^3 p (already on the card,
+    copied to the host once: ``append`` takes numpy) appended at
+    t = T_MAIN into a FileStore ``CZDataset`` with the default spec,
+    ``stats=True`` and ``device="cuda"``, once at ``workers=1`` and once at
+    ``workers=4`` (a new dataset each).  The two members are byte-identical,
+    and their chunks are those of main_path's p (``wavelet_file``); the
+    manifests' psnr and max_err are equal, max_err <= 100 eps.  Each append
+    launches the forward once and the inverse once per chunk (the stats
+    decode).  Each append runs with the trace on, and its seconds are split
+    by its spans (first start to last end, across the pool's threads): the
+    member's write, and within it stage 1 and the chunks' encodes; the
+    stats read, and within it the chunks' decodes; the psnr/max_err pass;
+    the manifest's commit; and the rest of the append.  Then the
+    ``workers=4`` dataset's keys go into a RangeStore
+    with 2 ms per request, and ``read_box`` of region_path's unaligned 100^3
+    box through ``CZDataset(store, device="cuda")``, cold then warm, equals
+    ``FieldReader(wavelet_file).read_box`` bit for bit, with one inverse
+    launch per chunk decoded (8 cold, 0 warm) and ``ds.stats()`` agreeing.
+    Last the CLI on the first dataset: ``inspect``, ``inspect --stats`` and
+    ``inspect --json`` exit 0; with an orphaned member and a stale ``.tmp``
+    planted, ``gc --dry-run`` lists exactly those two, ``gc`` deletes them,
+    and a second dry run finds the dataset clean.  Every step runs with the
+    launch counts set to 0 just before and read just after.  Returns the
+    phase's results and its launches summed (per wrapper, and per wrapper
+    and block side)."""
+    import math
+
+    import numpy as np
+
+    from repro_torch.core import container
+    from repro_torch.core.pipeline import STAGE_SECONDS, CompressionSpec
+    from repro_torch.obs import trace
+    from repro_torch.store import CZDataset, FileStore, RangeStore
+
+    counted, launched = _launch_counter("dataset_path", sides)
+
+    host = p512.cpu().numpy()
+    ref_chunks = [c for c, _n in container.iter_compressed(wavelet_file)]
+    nchunks = len(ref_chunks)
+    check(nchunks == math.ceil((N_MAIN // 32) ** 3 / 32),
+          f"dataset_path: main_path's p has {nchunks} chunks")
+    roots, appends, members, records = {}, {}, {}, {}
+    for w in DATASET_WORKERS:
+        roots[w] = os.path.join(tmp, "dataset", f"w{w}")
+        with CZDataset(roots[w], "a", spec=CompressionSpec(), workers=w, stats=True,
+                       device="cuda") as ds:
+            before = dict(STAGE_SECONDS)
+            trace.reset()
+            trace.enable()
+            t, append_s, _ = counted({"wavelet3d_forward": 1, "wavelet3d_inverse": nchunks},
+                                  f"append at workers={w}",
+                                  lambda ds=ds: ds.append({"p": host}, time=T_MAIN))
+            trace.disable()
+            spans = _span_walls(trace.TRACER.events())
+            trace.reset()
+            stage = {k: v - before[k] for k, v in STAGE_SECONDS.items()}
+            check(t == 0, f"dataset_path: the first append was given timestep {t}")
+            records[w] = ds.timestep_info("p", 0)
+        with open(os.path.join(roots[w], "p", "t000000.cz"), "rb") as fh:
+            members[w] = fh.read()
+        appends[f"workers{w}"] = {
+            "append_s": append_s,
+            "stage_s": {k: stage[k] for k in ("stage1", "serialize", "stage2_encode")},
+            "stats_decode_s": stage["stage2_decode"] + stage["deserialize"],
+            "wall_s": {
+                "write": spans["dataset.write"], "stage1": spans["stage1"],
+                "encode": spans["encode"],
+                "write_rest": spans["dataset.write"] - spans["stage1"] - spans["encode"],
+                "stats_read": spans["dataset.stats_read"], "decode": spans["decode"],
+                "stats_read_rest": spans["dataset.stats_read"] - spans["decode"],
+                "member_stats": spans["dataset.member_stats"],
+                "commit": spans["dataset.commit"],
+                "rest": append_s - sum(spans[k] for k in (
+                    "dataset.write", "dataset.stats_read", "dataset.member_stats",
+                    "dataset.commit"))},
+            "bytes": records[w]["bytes"], "psnr": records[w]["psnr"],
+            "max_err": records[w]["max_err"]}
+    check(members[1] == members[4], "dataset_path: the workers=1 and workers=4 members differ")
+    got = [c for c, _n in container.iter_compressed("p/t000000.cz",
+                                                    store=FileStore(roots[4]))]
+    check(got == ref_chunks, "dataset_path: the members' chunks differ from main_path's p")
+    check((records[1]["psnr"], records[1]["max_err"]) == (records[4]["psnr"],
+                                                         records[4]["max_err"]),
+          f"dataset_path: the manifests' stats differ: {records[1]} {records[4]}")
+    check(records[1]["max_err"] <= 100 * EPS,
+          f"dataset_path: max_err {records[1]['max_err']} > {100 * EPS}")
+    check(records[1]["raw_bytes"] == host.nbytes and records[1]["time"] == T_MAIN,
+          f"dataset_path: timestep record {records[1]}")
+
+    src = FileStore(roots[4])
+    st = RangeStore(latency=REGION_LATENCY)
+    for key in src.list(""):
+        st.put(key, src.get(key))
+    lo, hi = REGION_BOXES[DATASET_BOX]
+    with container.FieldReader(wavelet_file, device="cuda") as r:
+        want = r.read_box(lo, hi).view(np.int32)
+        cis = r.box_chunks(lo, hi)
+        nblk = len(r.box_blocks(lo, hi))
+    with CZDataset(st, device="cuda") as ds:
+        st0 = st.stats()
+        box, cold_s, _ = counted({"wavelet3d_inverse": len(cis)}, "read_box cold",
+                              lambda: ds.read_box("p", 0, lo, hi))
+        check(np.array_equal(box.view(np.int32), want),
+              "dataset_path: the cold read_box differs from FieldReader's")
+        box, warm_s, _ = counted({}, "read_box warm", lambda: ds.read_box("p", 0, lo, hi))
+        check(np.array_equal(box.view(np.int32), want),
+              "dataset_path: the warm read_box differs from FieldReader's")
+        st1 = st.stats()
+        stats = ds.stats()
+        check(stats == {"open_readers": 1, "chunks_decoded": len(cis),
+                        "cache_hits": 2 * nblk - len(cis), "cache_misses": len(cis),
+                        "cache_hit_rate": (2 * nblk - len(cis)) / (2 * nblk)},
+              f"dataset_path: ds.stats() {stats} for {len(cis)} chunks, {nblk} blocks")
+    region = {"box": DATASET_BOX, "lo": lo, "hi": hi, "chunks": len(cis),
+              "cold_ms": cold_s * 1e3, "warm_ms": warm_s * 1e3, "stats": stats,
+              "get_requests": st1["get_requests"] - st0["get_requests"],
+              "bytes_fetched": st1["bytes_fetched"] - st0["bytes_fetched"]}
+
+    root = roots[1]
+    t0 = time.perf_counter()
+    runs = {}  # each CLI call's exit code and output
+
+    def run(label: str, *argv):
+        runs[label] = counted({}, label, lambda: cli(*argv, root))[0]
+        return runs[label]
+
+    for flags in ([], ["--stats"], ["--json"]):
+        run(" ".join(["inspect", *flags]), "inspect", *flags)
+    check(all(code == 0 for code, _out in runs.values()),
+          f"dataset_path: inspect exit codes {[c for c, _o in runs.values()]}")
+    check(json.loads(runs["inspect --json"][1])["members"]["p/t000000.cz"]["crc_ok"] is True,
+          "dataset_path: inspect --json reports a CRC mismatch")
+    planted = ["manifest.json.tmp", "p/t000009.cz"]
+    for key in planted:
+        with open(os.path.join(root, key), "wb") as fh:
+            fh.write(b"orphan")
+    dry = run("gc --dry-run", "gc", "--dry-run")
+    check(dry == (0, "".join(f"would delete {k}\n" for k in planted) + "2 orphan(s) found\n"),
+          f"dataset_path: gc --dry-run gave {dry}")
+    gone = run("gc", "gc")
+    check(gone == (0, "".join(f"deleted {k}\n" for k in planted) + "2 orphan(s) deleted\n"),
+          f"dataset_path: gc gave {gone}")
+    check(not any(os.path.exists(os.path.join(root, k)) for k in planted),
+          "dataset_path: gc left a planted orphan")
+    again = run("gc --dry-run after gc", "gc", "--dry-run")
+    check(again == (0, "dataset clean — no orphans\n"),
+          f"dataset_path: the second gc --dry-run gave {again}")
+    cli_s = time.perf_counter() - t0
+    shutil.rmtree(os.path.join(tmp, "dataset"), ignore_errors=True)
+    return {"n": N_MAIN, "t_us": T_MAIN, "spec": "CompressionSpec() defaults, stats=True",
+            "chunks": nchunks, "cpu_count": os.cpu_count(),
+            "sched_affinity": len(os.sched_getaffinity(0)), "appends": appends,
+            "members_identical": True, "chunks_equal_main_path": True,
+            "region_read": region, "cli_s": cli_s,
+            "cli_exit": {label: code for label, (code, _out) in runs.items()},
+            **launched}
 
 
 def _max_abs_diff(got, want) -> float:
@@ -1122,7 +1350,8 @@ def _bit_equal(torch, got, want) -> bool:
 
 
 def kernel_rows(torch, wv, zf, sz, ops, lkern, launches: dict,
-                auto_launches: dict, region_launches: dict) -> list[dict]:
+                auto_launches: dict, region_launches: dict,
+                dataset_launches: dict) -> list[dict]:
     """One row per ported kernel at its path's shapes: the wavelet forward,
     zfpx and lorenzo encode over a QoI's 4096 blocks, the inverse, zfpx and
     lorenzo decode over one read-path chunk of 32 blocks; the wavelet
@@ -1203,6 +1432,7 @@ def kernel_rows(torch, wv, zf, sz, ops, lkern, launches: dict,
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "auto_path_launches": auto_launches[name],
             "region_path_launches": region_launches[name],
+            "dataset_path_launches": dataset_launches[name],
             "max_abs_err": err,
             "ms": kernel_ms(call, symbol, reps, per_call.get(name, 1)),
             "call_ms": median_ms(call, reps),
@@ -1298,8 +1528,11 @@ def main() -> int:
         emit({"phase": "auto_interop", "seconds": time.perf_counter() - t0, **auto_interop})
         t0 = time.perf_counter()
         auto_trials = phase_auto_trials(torch, wv, zf, sz, ops, p512)
-        del p512
         emit({"phase": "auto_trials", "seconds": time.perf_counter() - t0, **auto_trials})
+        t0 = time.perf_counter()
+        dataset_path = phase_dataset(tmp, p512, region["wavelet"], sides)
+        del p512
+        emit({"phase": "dataset_path", "seconds": time.perf_counter() - t0, **dataset_path})
         auto_path = run_cli_path(tmp, "auto_path", ["--scheme", "auto", "--target", "abs=1e-3"],
                                  "CompressionSpec(scheme='auto', extra={'target': "
                                  "'abs=1e-3'}): 32^3 blocks, 4 MiB chunks, byte shuffle, "
@@ -1329,7 +1562,7 @@ def main() -> int:
         launches[row] = sum(run["launches_by_side"].get(key, 0) for run in runs)
     t0 = time.perf_counter()
     rows = kernel_rows(torch, wv, zf, sz, ops, lkern, launches, _path_rows(auto_path),
-                       _path_rows(region_path))
+                       _path_rows(region_path), _path_rows(dataset_path))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     print(card, flush=True)
     emit({"kernels": rows})

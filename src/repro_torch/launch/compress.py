@@ -20,6 +20,9 @@ Examples:
       --verify-against p.npy
   python -m repro_torch.launch.compress inspect artifacts/fields/p.cz
   python -m repro_torch.launch.compress inspect --json artifacts/fields/p.cz
+  python -m repro_torch.launch.compress inspect artifacts/dataset
+  python -m repro_torch.launch.compress inspect --stats file:///data/run42
+  python -m repro_torch.launch.compress gc --dry-run artifacts/dataset
   python -m repro_torch.launch.compress stats metrics.txt
   python -m repro_torch.launch.compress stats --diff a.json b.json
 
@@ -31,13 +34,15 @@ run's spans (stage 1, each chunk's encode and decode, trials, kernel
 calls), viewable in Perfetto.
 
 ``inspect PATH`` prints a container's header, chunk table and CRC verdicts
-(``--json``: the same as one JSON document, ``container.describe``);
+(``--json``: the same as one JSON document, ``container.describe``); of a
+dataset root (a directory or a store URL: ``file://``, ``mem://``, ...) the
+manifest summary and every member's table (``--json``: ``CZDataset.describe``
+with the members' documents), and ``--stats`` the per-member CR/PSNR table.
+``gc [--dry-run] ROOT`` lists, then deletes, a dataset's orphaned members.
 ``stats [SOURCE]`` pretty-prints a metrics snapshot (a running server's
 ``/metrics``, a file of Prometheus text, ``-`` for stdin, or this process's
-registry), ``--diff A B`` the delta of two JSON snapshots.  Both print what
-the reference's ``cz-compress inspect`` and ``stats`` print.  Dataset roots
-(a directory or a store URL) and ``inspect --stats`` need the dataset
-layer, which the port does not have yet.
+registry), ``--diff A B`` the delta of two JSON snapshots.  Each prints what
+the reference's ``cz-compress inspect``, ``gc`` and ``stats`` print.
 
 The containers are readable by the reference (``repro``) and vice versa.
 """
@@ -101,11 +106,14 @@ def _is_dataset_root(path: str) -> bool:
     return "://" in path or os.path.isdir(path)
 
 
-def _inspect_container(path: str, verify: bool = True) -> bool:
-    """Print a CZ container's self-description; returns the CRC verdict."""
-    d = container.describe(path, verify=verify)
+def _inspect_container(path: str, verify: bool = True, store=None,
+                       label: str | None = None) -> bool:
+    """Print a CZ container's self-description; returns the CRC verdict.
+    ``store`` reads the container from a byte store (``path`` is then a
+    store key); ``label`` overrides the printed heading."""
+    d = container.describe(path, verify=verify, store=store)
     magic = container.MAGIC_V1 if d["container"] == "CZ1" else container.MAGIC
-    print(path)
+    print(label or path)
     print(f"  magic        {magic!r}  (container "
           f"{'CZ1 legacy' if d['container'] == 'CZ1' else 'CZ2'}, "
           f"chunk format {d['format']})")
@@ -142,33 +150,129 @@ def _inspect_container(path: str, verify: bool = True) -> bool:
     return ok
 
 
+def _open_dataset(root: str, mode: str = "r"):
+    """The dataset for ``inspect`` and ``gc``, which read manifests and
+    container footers and decode nothing: no device is needed."""
+    from repro_torch.store import CZDataset
+
+    return CZDataset(root, mode, device="cpu")
+
+
+def _inspect_dataset(root: str, verify: bool) -> bool:
+    ok = True
+    with _open_dataset(root) as ds:
+        print(f"{root}: CZDataset v{ds.version}, spec {ds.spec.to_json()}")
+        for q in ds.quantities:
+            print(f"  {q}: shape {list(ds.shape(q))} dtype {ds.dtype(q)} "
+                  f"timesteps {ds.timesteps(q)}")
+            for ts in ds.timestep_info(q):
+                ok &= _inspect_container(
+                    ts["file"], verify, store=ds.store,
+                    label=f"{root.rstrip('/')}/{ts['file']}")
+    return ok
+
+
+def _stats_table(root: str) -> int:
+    """Per-member compression factor + PSNR table (the paper's testbed-of-
+    comparison readout).  PSNR/max_err come from append-time stats
+    (``CZDataset(..., stats=True)``); members appended without them show
+    '-'."""
+    with _open_dataset(root) as ds:
+        print(f"{root}: CZDataset v{ds.version}, "
+              f"scheme {ds.spec.scheme}, eps {ds.spec.eps}")
+        print(f"  {'quantity':<12} {'t':>4} {'bytes':>12} {'raw':>12} "
+              f"{'CR':>8} {'PSNR(dB)':>9} {'max_err':>10}")
+        for q in ds.quantities:
+            for ts in ds.timestep_info(q):
+                cr = compression_ratio(ts["raw_bytes"], ts["bytes"])
+                p = ts.get("psnr", "-")
+                if p is None:
+                    p = "exact"     # bit-exact member (recorded as null)
+                elif isinstance(p, float):
+                    p = f"{p:.2f}"
+                e = ts.get("max_err", "-")
+                if isinstance(e, float):
+                    e = f"{e:.3e}"
+                print(f"  {q:<12} {ts['t']:>4} {ts['bytes']:>12} "
+                      f"{ts['raw_bytes']:>12} {cr:>8.2f} {p:>9} {e:>10}")
+    return 0
+
+
 def _inspect_json(path: str, verify: bool) -> int:
-    """Machine-readable inspect: ``container.describe`` as one document."""
-    out = container.describe(path, verify=verify)
+    """Machine-readable inspect: ``CZDataset.describe`` for a dataset root
+    (with ``container.describe`` of every member), ``container.describe``
+    for one container."""
+    if _is_dataset_root(path):
+        with _open_dataset(path) as ds:
+            out = ds.describe()
+            out["root"] = path
+            out["members"] = {
+                ts["file"]: container.describe(
+                    ts["file"], verify=verify, store=ds.store)
+                for q in ds.quantities for ts in ds.timestep_info(q)}
+    else:
+        out = container.describe(path, verify=verify)
     json.dump(out, sys.stdout, indent=1)
     print()
-    return 1 if verify and out.get("crc_ok") is False else 0
+    members = out.get("members", {path: out} if "chunks" in out else {})
+    bad = [m for m in members.values()
+           if verify and m.get("crc_ok") is False]
+    return 1 if bad else 0
 
 
 def inspect_main(argv) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.compress inspect")
-    ap.add_argument("path", help="a .cz container")
+    ap.add_argument("path", help="a .cz container, a CZDataset directory, or "
+                    "a store URL (file://, mem://, any registered scheme)")
     ap.add_argument("--no-verify", action="store_true",
                     help="print CRCs without re-reading chunk data")
     ap.add_argument("--stats", action="store_true",
-                    help="per-member CR/PSNR table for a dataset root (needs "
-                    "the dataset layer, not ported yet)")
+                    help="per-member CR/PSNR table for a dataset root")
     ap.add_argument("--json", action="store_true",
-                    help="machine-readable output: the container's header and "
-                    "chunk table as one JSON document on stdout")
+                    help="machine-readable output: manifest + member/chunk "
+                    "tables as one JSON document on stdout")
     args = ap.parse_args(argv)
-    if args.stats or _is_dataset_root(args.path):
-        what = "--stats" if args.stats else f"{args.path!r} is a dataset root:"
-        ap.error(f"{what} dataset roots need CZDataset, which the port does not "
-                 "have yet (ROADMAP §1 item 5); inspect takes one .cz container")
+    if args.stats:
+        if not _is_dataset_root(args.path):
+            ap.error("--stats needs a CZDataset directory or store URL")
+        return _stats_table(args.path)
     if args.json:
         return _inspect_json(args.path, not args.no_verify)
-    return 0 if _inspect_container(args.path, not args.no_verify) else 1
+    if _is_dataset_root(args.path):
+        ok = _inspect_dataset(args.path, not args.no_verify)
+    else:
+        ok = _inspect_container(args.path, not args.no_verify)
+    return 0 if ok else 1
+
+
+def gc_main(argv) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.compress gc",
+        description="Delete orphaned dataset members (on disk but absent "
+                    "from the manifest, e.g. after a torn append or an "
+                    "aborted rank merge).  Members pending in rank sidecars "
+                    "are never touched.")
+    ap.add_argument("root", help="CZDataset directory or store URL "
+                    "(file://, mem://)")
+    ap.add_argument("--dry-run", action="store_true",
+                    help="list orphans without deleting")
+    args = ap.parse_args(argv)
+    from repro_torch.store import MANIFEST_NAME, open_store
+
+    if not open_store(args.root).exists(MANIFEST_NAME):
+        print(f"error: no {MANIFEST_NAME} in {args.root}", file=sys.stderr)
+        return 1
+    with _open_dataset(args.root, "r" if args.dry_run else "a") as ds:
+        orphans = ds.gc(dry_run=args.dry_run)
+    verb = "would delete" if args.dry_run else "deleted"
+    for rel in orphans:
+        print(f"{verb} {rel}")
+    if orphans:
+        print(f"{len(orphans)} orphan(s) "
+              f"{'found' if args.dry_run else 'deleted'}")
+    else:
+        print("dataset clean — no orphans")
+    return 0
 
 
 def _stats_fetch(source: str | None) -> str:
@@ -316,11 +420,13 @@ def stats_main(argv) -> int:
 
 def main(argv=None) -> dict | None:
     """Run the CLI; returns the report it writes to ``report.json`` (``None``
-    for ``--decompress``).  The subcommands ``inspect`` and ``stats`` exit
-    with their status, as the reference's do."""
+    for ``--decompress``).  The subcommands ``inspect``, ``gc`` and
+    ``stats`` exit with their status, as the reference's do."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "inspect":
         raise SystemExit(inspect_main(argv[1:]))
+    if argv and argv[0] == "gc":
+        raise SystemExit(gc_main(argv[1:]))
     if argv and argv[0] == "stats":
         raise SystemExit(stats_main(argv[1:]))
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.compress")

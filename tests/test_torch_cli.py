@@ -6,6 +6,7 @@ for lorenzo and szx) of the field."""
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -218,16 +219,95 @@ def test_inspect_prints_what_the_reference_prints(tmp_path, flags):
         assert doc["schemes"] and doc["scheme"] == "auto"
 
 
-@pytest.mark.parametrize("args", [["DIR"], ["URL"], ["--stats", "FILE"], ["--json", "DIR"]],
-                         ids=["directory", "url", "stats", "json-directory"])
+def _dataset(root) -> None:
+    """A dataset for the CLI: auto (a chunk mix), 8^3 blocks, 2 KiB chunks;
+    timestep 0 of p and rho with stats, timestep 1 of p without."""
+    from repro_torch.store import CZDataset
+
+    f = tcavitation_fields(TCloudConfig(n=16), 9.4, device="cpu")
+    spec = CompressionSpec(scheme="auto", block_size=8, buffer_bytes=1 << 11)
+    with CZDataset(str(root), "a", spec=spec, stats=True, device="cpu") as ds:
+        ds.append({"p": f["p"].numpy(), "rho": f["rho"].numpy()}, time=9.4)
+    with CZDataset(str(root), "a", device="cpu") as ds:
+        ds.append({"p": f["p"].numpy() + 1}, time=9.5)
+
+
+@pytest.mark.parametrize("args", [["DIR"], ["URL"], ["--stats", "DIR"], ["--json", "DIR"],
+                                  ["--stats", "FILE"]],
+                         ids=["directory", "url", "stats", "json-directory", "stats-file"])
 def test_inspect_refuses_dataset_roots(tmp_path, args):
-    """Dataset roots and ``--stats`` need the dataset layer: a usage error
-    (exit 2) that names the roadmap item."""
-    path = {"DIR": str(tmp_path), "URL": "mem://ds",
+    """Dataset roots were refused before the dataset layer was ported; now
+    ``inspect`` of a directory root, a ``file://`` root, ``--stats`` and
+    ``--json`` of a root print what the reference's CLI prints on the same
+    tree, character for character, with its exit code.  ``--stats`` of one
+    container is still refused, with the reference's usage error."""
+    from repro.launch import compress as rcompress
+
+    root = tmp_path / "ds"
+    _dataset(root)
+    path = {"DIR": str(root), "URL": f"file://{root}",
             "FILE": str(ROOT / "tests" / "data" / "cz2_zfpx.cz")}
-    code, out, err = _cli(compress, ["inspect", *[path.get(a, a) for a in args]])
-    assert code == 2 and out == ""
-    assert "ROADMAP §1 item 5" in err and "CZDataset" in err
+    argv = ["inspect", *[path.get(a, a) for a in args]]
+    got, want = _cli(compress, argv), _cli(rcompress, argv)
+    if "FILE" in args:
+        assert got[0] == want[0] == 2 and got[1] == want[1] == ""
+        assert got[2].splitlines()[-1].split(": ", 2)[-1] == \
+            want[2].splitlines()[-1].split(": ", 2)[-1] == \
+            "--stats needs a CZDataset directory or store URL"
+        return
+    assert got == want
+    assert got[0] == 0 and got[2] == ""
+    if "--json" in args:
+        doc = json.loads(got[1])
+        assert doc["store"] == "CZDS" and len(doc["members"]) == 3
+        assert all(m["crc_ok"] for m in doc["members"].values())
+    elif "--stats" in args:
+        assert "CZDataset v2, scheme auto" in got[1] and got[1].count(" - ") >= 1
+    else:
+        assert got[1].count("CRC verify   ok") == 3 and "chunk mix" in got[1]
+
+
+@pytest.mark.parametrize("case", ["dry-run", "delete", "no-manifest"])
+def test_gc_prints_what_the_reference_prints(tmp_path, case):
+    """``gc [--dry-run]`` on a tree with an orphaned member, a stale
+    ``.tmp`` and a member pending in a rank sidecar: the reference CLI's
+    output and exit code; each deletes the same keys from its copy of the
+    tree (never the sidecar's member), after which a dry run reports the
+    dataset clean.  A root without a manifest fails alike."""
+    from repro.launch import compress as rcompress
+    from repro.store import manifest as rman
+
+    root = tmp_path / "t"
+    _dataset(root)
+    side = rman.new_rank_manifest(2)
+    side["entries"].append({"quantity": "p", "t": 5, "time": 9.6, "file": "p/t000005.cz",
+                            "bytes": 4, "raw_bytes": 16384, "shape": [16] * 3,
+                            "dtype": "float32"})
+    rman.write_rank_manifest(str(root), side)
+    for key in ("p/t000005.cz", "p/t000009.cz", "rho/t000001.cz.tmp"):
+        (root / key).write_bytes(b"data")
+    if case == "no-manifest":
+        (root / "manifest.json").unlink()
+    shutil.copytree(root, tmp_path / "r")
+    flags = ["--dry-run"] if case == "dry-run" else []
+    got = _cli(compress, ["gc", *flags, str(root)])
+    want = _cli(rcompress, ["gc", *flags, str(tmp_path / "r")])
+    assert got[0] == want[0]
+    if case == "no-manifest":
+        assert got[0] == 1 and got[1] == want[1] == ""
+        assert got[2] == f"error: no manifest.json in {root}\n"
+        assert want[2] == f"error: no manifest.json in {tmp_path / 'r'}\n"
+        return
+    assert got == want and got[0] == 0
+    verb = "would delete" if flags else "deleted"
+    assert got[1] == (f"{verb} p/t000009.cz\n{verb} rho/t000001.cz.tmp\n"
+                      f"2 orphan(s) {'found' if flags else 'deleted'}\n")
+    assert (root / "p" / "t000005.cz").exists()
+    if not flags:
+        for r in (root, tmp_path / "r"):
+            again = _cli(compress, ["gc", "--dry-run", str(r)])
+            assert again == _cli(rcompress, ["gc", "--dry-run", str(r)])
+            assert again[1] == "dataset clean — no orphans\n"
 
 
 METRICS_TEXT = """\

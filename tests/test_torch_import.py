@@ -35,7 +35,8 @@ NEW_MODULES = ("repro_torch.obs", "repro_torch.obs.registry", "repro_torch.obs.c
                "repro_torch.store.backends.memory", "repro_torch.store.backends.file",
                "repro_torch.store.backends.object", "repro_torch.store.backends.instrument",
                "repro_torch.store.backends.retry", "repro_torch.store.backends.flaky",
-               "repro_torch.store.backends.http")
+               "repro_torch.store.backends.http", "repro_torch.store.manifest",
+               "repro_torch.store.writer", "repro_torch.store.dataset")
 
 
 def test_new_modules_are_in_the_import_check():
