@@ -160,10 +160,50 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  its decodes; the psnr/max_err pass; the manifest's
                  commit), the host's CPU count and affinity, and the box's
                  cold and warm ms.
+   ``parallel_path`` the cluster tier (``repro_torch.cluster``), run after
+                 dataset_path on the 512^3 p it left on the card, through
+                 one ``ParallelCompressor(4, device="cuda")``: four spawned
+                 rank processes, each with its own CUDA context on the
+                 card.  The pool's first compress (a 128^3 cube from the
+                 middle of p, wavelet, one block per chunk: 64 chunks, ranks
+                 4) and the same compress warm give the boot.  Under
+                 wavelet, zfpx and lorenzo (eps 1e-3) the cube's shared file
+                 at ranks 1, 2 and 4 is byte-identical to the serial
+                 ``container.write_field(device="cuda")`` and decodes on the
+                 card within the scheme's bound.  p itself (default spec,
+                 128 chunks) at ranks 2 and 4 is byte-identical to
+                 main_path's p container.  From each compress's trace (the
+                 ranks' tracks absorbed onto pids 0..3): every rank's
+                 ``encode`` span, whose launch counts show exactly one
+                 launch of the scheme's encode kernel on the card, and
+                 that kernel's span for its timing.  Prints per rank count of p the
+                 wall, ``cz_cluster_phase_seconds`` per phase, the parent's
+                 span copy to the host and its write of the span files,
+                 each rank's span read, encode wall, stage seconds, kernel
+                 span and commit, the seconds in which two
+                 or more ranks' stage 1 (and kernels) overlap, and while the
+                 pool is warm the card's compute processes and their memory
+                 (nvidia-smi) beside the ranks' pids, and the card memory
+                 the ranks hold (free memory before the pool less while it
+                 is warm, less this process's own reserve's growth); then
+                 32 MiB of p pickled through the warm pool's pipe (the
+                 reference's handoff) against the staging files' rates,
+                 and the staging directory's file system.  Then two
+                 ``RankWriter(stats=True, device="cuda")`` ranks append the
+                 cube as p and the first 128^3 corner as rho to a new
+                 FileStore dataset, ``merge_manifests`` folds both, the
+                 dataset reads each back within 100 eps on the card with no
+                 sidecar left, and ``gc --dry-run`` finds it clean; last the
+                 CLI's ``parallel --ranks 4 --n 128 --qoi p
+                 --check-identical --device cuda`` in-process (its own pool)
+                 exits 0, bit-identical.
    A kernel's launch count on a path is its wrapper's
    ``cz_kernel_calls_total{device="cuda"}`` series from repro_torch.obs,
    which the wrapper adds one to where its launch succeeded and nowhere
    else (exact under threads); each path sets it to 0 just before its run.
+   A rank process's launches are the same counts in its own process, read
+   by the rank before and after its encode and carried on its ``encode``
+   span (``launches``, ``launches_by_side``).
 7. ``kernels``   one row per ported kernel, at its path's shapes (forward,
                  zfpx and lorenzo encode B = 4096, inverse, zfpx and lorenzo
                  decode B = 32 blocks of 32^3: one read-path chunk), the
@@ -190,18 +230,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  SM).  No single PyTorch call computes any of these
                  functions, so there is no library time.  Each row also
                  carries its launches on auto_path (``auto_path_launches``),
-                 region_path (``region_path_launches``) and dataset_path
-                 (``dataset_path_launches``).
+                 region_path (``region_path_launches``), dataset_path
+                 (``dataset_path_launches``) and parallel_path
+                 (``parallel_path_launches``: the parent's and the ranks',
+                 each rank's read from its own launch sites).
 
 The parity, bits and kernels lines carry their phase's seconds.  The last
 line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
-import concurrent.futures
 import contextlib
 import io
 import json
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -1334,6 +1376,348 @@ def phase_dataset(tmp: str, p512, wavelet_file: str, sides: list[dict]) -> dict:
             **launched}
 
 
+# parallel_path: the rank counts of the 512^3 p, and of the device-spec
+# checks on a 128^3 cube from the middle of it (one 32^3 block per chunk:
+# 64 chunks, so every rank has a span)
+PARALLEL_RANKS = (2, 4)
+PARALLEL_SPEC_RANKS = (1, 2, 4)
+PARALLEL_CUBE = slice(192, 320)
+PARALLEL_BUFFER = 1 << 17
+# each device scheme's encode and decode rows, and its bound for a max |x|
+PARALLEL_SCHEMES = {"wavelet": ("wavelet3d_forward", "wavelet3d_inverse", lambda _m: 100 * EPS),
+                    "zfpx": ("zfpx_encode", "zfpx_decode", lambda _m: ZFPX_BOUND),
+                    "lorenzo": ("lorenzo_encode", "lorenzo_decode", lorenzo_bound)}
+CLUSTER_PHASES = ("encode", "exscan", "commit")
+# the planes of p pickled through the pool's pipe for comparison (32 MiB)
+PIPE_PLANES = 32
+
+
+def _traced(fn):
+    """``fn()`` with the process tracer on: its value and the trace's
+    events (the ranks' tracks absorbed onto ``pid`` 0, 1, ...)."""
+    from repro_torch.obs import trace
+
+    trace.reset()
+    trace.enable()
+    try:
+        out = fn()
+    finally:
+        trace.disable()
+    events = trace.TRACER.events()
+    trace.reset()
+    return out, events
+
+
+def _cluster_phase_sums() -> dict:
+    """The sums of ``cz_cluster_phase_seconds`` so far, per phase."""
+    from repro_torch import obs
+
+    h = obs.REGISTRY.get("cz_cluster_phase_seconds")
+    return {p: h.snapshot(phase=p)["sum"] for p in CLUSTER_PHASES}
+
+
+def _overlap_s(intervals: list[tuple[float, float]]) -> float:
+    """Seconds during which two or more of the ``[start, end)`` intervals
+    (us) run at once."""
+    edges = sorted([(a, 1) for a, _b in intervals] + [(b, -1) for _a, b in intervals])
+    depth, last, total = 0, 0.0, 0.0
+    for t, step in edges:
+        if depth >= 2:
+            total += t - last
+        depth += step
+        last = t
+    return total / 1e6
+
+
+def _rank_tracks(events: list[dict], nranks: int, row: str, what: str) -> list[dict]:
+    """Each rank's track in a compress's absorbed trace: its ``encode``
+    span, whose launch counts (read in the rank's own process, from its
+    wrappers' launch sites, across the encode) must be exactly one launch
+    of ``row``'s kernel, and that kernel's one ``kernel.*`` span on the card,
+    for its timing.  Returns per rank its launches (per wrapper and per
+    side), its encode wall and stage seconds, its stage 1 and kernel spans
+    (us on the parent's timeline) and its commit wall."""
+    out = []
+    for r in range(nranks):
+        mine = [e for e in events if e.get("pid") == r and e.get("ph") == "X"]
+        enc = [e for e in mine if e["name"] == "encode" and e.get("args", {}).get("rank") == r]
+        check(len(enc) == 1, f"parallel_path {what}: rank {r} has {len(enc)} encode spans")
+        launches = enc[0]["args"]["launches"]
+        check(launches == {KERNEL_LABELS[row]: 1},
+              f"parallel_path {what}: rank {r} launched {launches}, not one {row} on the card")
+        calls = [(e["args"]["kernel"], e["args"]["device"]) for e in mine
+                 if e["name"].startswith("kernel.")]
+        check(calls == [(KERNEL_LABELS[row], "cuda")],
+              f"parallel_path {what}: rank {r}'s kernel spans {calls}, not one {row} on cuda")
+        kern = next(e for e in mine if e["name"].startswith("kernel."))
+        s1 = [e for e in mine if e["name"] == "stage1"]
+        check(len(s1) == 1, f"parallel_path {what}: rank {r} has {len(s1)} stage1 spans")
+        out.append({"rank": r, "nblocks": enc[0]["args"]["nblocks"], "launches": launches,
+                    "launches_by_side": enc[0]["args"]["launches_by_side"],
+                    "span_read_s": sum(e["dur"] for e in mine if e["name"] == "span_read") / 1e6,
+                    "encode_s": enc[0]["dur"] / 1e6, "stage_s": enc[0]["args"]["stage_s"],
+                    "stage1_us": (s1[0]["ts"], s1[0]["ts"] + s1[0]["dur"]),
+                    "kernel_us": (kern["ts"], kern["ts"] + kern["dur"]),
+                    "commit_s": sum(e["dur"] for e in mine if e["name"] == "commit") / 1e6})
+    return out
+
+
+def _parent_span_s(events: list[dict], name: str) -> float:
+    """Seconds of the parent's ``name`` spans (the ranks' tracks are pids
+    below the rank count; the parent's is its OS pid)."""
+    pid = os.getpid()
+    return sum(e["dur"] for e in events
+               if e.get("pid") == pid and e["name"] == name and e.get("ph") == "X") / 1e6
+
+
+def staging_fs() -> dict:
+    """The system's temporary directory, where the engine stages the ranks'
+    spans, and the file system it lies on (``/proc/mounts``)."""
+    import tempfile
+
+    tmp = os.path.realpath(tempfile.gettempdir())
+    mounts = []
+    with open("/proc/mounts") as f:
+        for line in f:
+            dev, mnt, fstype = line.split()[:3]
+            if tmp == mnt or tmp.startswith(mnt.rstrip("/") + "/"):
+                mounts.append((len(mnt), mnt, fstype, dev))
+    _n, mnt, fstype, dev = max(mounts)
+    return {"dir": tmp, "mount": mnt, "fstype": fstype, "device": dev}
+
+
+def smi_apps() -> str:
+    """The card's compute processes and their memory (nvidia-smi)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def phase_parallel(tmp: str, p512, wavelet_file: str, sides: list[dict]) -> dict:
+    """The cluster tier on the card (``repro_torch.cluster``), run after
+    dataset_path on the 512^3 p it left on the card.  One
+    ``ParallelCompressor(4, device="cuda")`` (four spawned ranks, each with
+    its own CUDA context on the card) serves every compress below.
+
+    1. Boot: the pool's first compress (the 128^3 cube from the middle of
+       p, wavelet, 64 chunks, ranks 4), which starts the four ranks, and the
+       same compress again, warm.
+    2. Device specs: under wavelet, zfpx and lorenzo (eps 1e-3, 32^3 blocks,
+       one block per chunk), the cube's shared file at ranks 1, 2 and 4 is
+       byte-identical to ``container.write_field(..., device="cuda")`` and
+       decodes on the card within the scheme's bound; each rank's trace
+       shows its ``encode`` span and one launch of the scheme's encode
+       kernel on the card (ranks 1: the parent's launch, in-process).
+    3. The paper's mechanism at full size: p (the default spec, 128
+       chunks) at ranks 2 and 4, each file byte-identical to main_path's p
+       container; per rank count the wall, the parent's
+       ``cz_cluster_phase_seconds`` per phase and its span copy to the host,
+       each rank's encode wall, stage seconds, stage 1 and kernel spans and
+       commit; while the pool is warm, the card's compute processes and
+       their memory (nvidia-smi) and the ranks' pids, and the card memory
+       the ranks hold: the card's free memory (``torch.cuda.mem_get_info``)
+       before the pool started less that while it is warm, less what this
+       process reserved meanwhile.
+    4. ``RankWriter``: two ranks (``stats=True``, ``device="cuda"``) append
+       the cube as p and the first 128^3 corner as rho at t = 0 to a new
+       FileStore dataset with the default spec; ``merge_manifests`` folds
+       both; ``CZDataset(device="cuda")`` lists both, reads each back
+       within 100 eps, no sidecar is left, and ``gc --dry-run`` finds the
+       dataset clean.
+    5. The CLI in-process: ``parallel --ranks 4 --n 128 --qoi p
+       --check-identical --device cuda`` (its own pool) exits 0 and prints
+       ``bit-identical``.
+
+    Every step runs with the launch counts set to 0 just before and read
+    just after (the parent's launches: the serial writes, the read-backs,
+    ranks 1); the ranks' launches are the counts each rank read from its
+    own launch sites across its encode, carried on its ``encode`` span.
+    After the p runs, 32 MiB of p pickled through the pool's pipe to a rank
+    (the reference's handoff) against the staging files' rates, and the
+    file system of the staging directory.
+    Prints the boot's line and one per rank count of p; returns the
+    phase's result with its launches (parent and ranks, per kernel row)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.cluster import ParallelCompressor, RankWriter, merge_manifests
+    from repro_torch.core import container
+    from repro_torch.core.pipeline import CompressionSpec
+    from repro_torch.store import CZDataset
+
+    counted, launched = _launch_counter("parallel_path", sides)
+    rank_launches = dict.fromkeys(KERNEL_LABELS, 0)
+    rank_sides: dict = {}
+    row_of = {label: row for row, label in KERNEL_LABELS.items()}
+
+    def ranked(tracks: list[dict]) -> None:
+        """Add the ranks' launch-site counts of one compress."""
+        for t in tracks:
+            for label, n in t["launches"].items():
+                rank_launches[row_of[label]] += n
+            for key, n in t["launches_by_side"].items():
+                rank_sides[key] = rank_sides.get(key, 0) + n
+
+    root = os.path.join(tmp, "parallel")
+    os.makedirs(root)
+    cube = p512[PARALLEL_CUBE, PARALLEL_CUBE, PARALLEL_CUBE].contiguous()
+    cube_np = cube.cpu().numpy()
+    ref_bytes = open(wavelet_file, "rb").read()
+    host = {"cpu_count": os.cpu_count(), "sched_affinity": len(os.sched_getaffinity(0))}
+    torch.cuda.synchronize()
+    free0, reserved0 = torch.cuda.mem_get_info()[0], torch.cuda.memory_reserved()
+    with ParallelCompressor(4, device="cuda") as pc:
+        # 1. boot: the pool's first compress, then the same one warm
+        spec = CompressionSpec(buffer_bytes=PARALLEL_BUFFER)
+        path = os.path.join(root, "boot.cz")
+        boot = {}
+        for label in ("first", "warm"):
+            (_n, evs), boot[f"{label}_s"], _ = counted(
+                {}, f"boot {label}", lambda: _traced(lambda: pc.compress(path, cube, spec)))
+            ranked(_rank_tracks(evs, 4, "wavelet3d_forward", f"boot {label}"))
+        boot["boot_s"] = boot["first_s"] - boot["warm_s"]
+        emit({"phase": "parallel_path", "part": "boot", **boot, **host,
+                      "what": "the pool's first compress (128^3 cube, ranks 4, 64 chunks: "
+                              "four spawned ranks, each its torch import and CUDA context) "
+                              "and the same compress warm"})
+
+        # 2. the device specs at ranks 1, 2 and 4 on the cube
+        specs = {}
+        for scheme, (enc, dec, bound) in PARALLEL_SCHEMES.items():
+            spec = CompressionSpec(scheme=scheme, buffer_bytes=PARALLEL_BUFFER)
+            serial = os.path.join(root, f"{scheme}.serial.cz")
+            _n, serial_s, _ = counted({enc: 1}, f"{scheme} serial write",
+                                      lambda: container.write_field(serial, cube, spec,
+                                                                    device="cuda"))
+            want = open(serial, "rb").read()
+            res = {"serial_s": serial_s, "bytes": len(want)}
+            for ranks in PARALLEL_SPEC_RANKS:
+                path = os.path.join(root, f"{scheme}.r{ranks}.cz")
+                (_n, evs), res[f"ranks{ranks}_s"], _ = counted(
+                    {enc: 1} if ranks == 1 else {}, f"{scheme} ranks={ranks}",
+                    lambda: _traced(lambda: pc.compress(path, cube, spec, ranks=ranks)))
+                check(open(path, "rb").read() == want,
+                      f"parallel_path: {scheme} at ranks={ranks} differs from the serial writer")
+                if ranks > 1:
+                    ranked(_rank_tracks(evs, ranks, enc, f"{scheme} ranks={ranks}"))
+            nchunks = len(container.describe(path)["chunks"])
+            got, read_s, _ = counted({dec: nchunks}, f"{scheme} read",
+                                     lambda: container.read_field(path, device="cuda"))
+            err = float(np.max(np.abs(got - cube_np)))
+            b = bound(float(np.max(np.abs(cube_np))))
+            check(err <= b, f"parallel_path: {scheme} max error {err} > {b}")
+            specs[scheme] = {**res, "read_s": read_s, "chunks": nchunks, "max_err": err,
+                             "bound": b, "files_identical": True}
+            for name in os.listdir(root):
+                os.unlink(os.path.join(root, name))
+
+        # 3. the 512^3 p at ranks 2 and 4 against main_path's p container
+        spec = CompressionSpec()
+        path = os.path.join(root, "p.cz")
+        full = {}
+        for ranks in PARALLEL_RANKS:
+            before = _cluster_phase_sums()
+            (nbytes, evs), wall_s, _ = counted(
+                {}, f"p512 ranks={ranks}",
+                lambda: _traced(lambda: pc.compress(path, p512, spec, ranks=ranks)))
+            check(open(path, "rb").read() == ref_bytes,
+                  f"parallel_path: the 512^3 p at ranks={ranks} differs from main_path's")
+            tracks = _rank_tracks(evs, ranks, "wavelet3d_forward", f"p512 ranks={ranks}")
+            ranked(tracks)
+            after = _cluster_phase_sums()
+            full[ranks] = {
+                "ranks": ranks, "wall_s": wall_s, "bytes": nbytes,
+                "phase_s": {p: after[p] - before[p] for p in CLUSTER_PHASES},
+                "host_copy_s": _parent_span_s(evs, "host_copy"),
+                "span_write_s": _parent_span_s(evs, "span_write"),
+                "stage1_overlap_s": _overlap_s([t["stage1_us"] for t in tracks]),
+                "kernel_overlap_s": _overlap_s([t["kernel_us"] for t in tracks]),
+                "per_rank": [{"rank": t["rank"], "nblocks": t["nblocks"],
+                              "span_read_s": t["span_read_s"],
+                              "encode_s": t["encode_s"], "stage_s": t["stage_s"],
+                              "kernel_ms": (t["kernel_us"][1] - t["kernel_us"][0]) / 1e3,
+                              "commit_s": t["commit_s"]} for t in tracks],
+                "identical_to_main_path": True}
+            if ranks == max(PARALLEL_RANKS):  # the pool is warm: each context's memory
+                torch.cuda.synchronize()
+                held = free0 - torch.cuda.mem_get_info()[0] - (
+                    torch.cuda.memory_reserved() - reserved0)
+                full[ranks]["ranks_card_mib"] = {"all": held / 2**20, "per_rank": held / 2**20 / 4}
+                full[ranks]["compute_apps"] = smi_apps()
+                full[ranks]["pids"] = {"parent": os.getpid(), "ranks": sorted(
+                    p.pid for p in multiprocessing.active_children())}
+            os.unlink(path)
+            emit({"phase": "parallel_path", "part": "p512", **full[ranks], **host})
+
+        # the reference's handoff, for comparison: a span pickled through the
+        # pool's one pipe to a rank, against the staging files' rates above
+        span = p512[:PIPE_PLANES].cpu().numpy()
+        t0 = time.perf_counter()
+        got = pc._get_pool().apply(len, (span,))
+        pipe_s = time.perf_counter() - t0
+        check(got == PIPE_PLANES, f"parallel_path: the pipe delivered {got} planes")
+        mib, wide = span.nbytes / 2**20, full[max(PARALLEL_RANKS)]
+        handoff = {"pipe_mib": mib, "pipe_s": pipe_s, "pipe_mib_s": mib / pipe_s,
+                   "file_write_mib_s": p512.numel() * 4 / 2**20 / wide["span_write_s"],
+                   "file_read_mib_s": min(r["nblocks"] * 32**3 * 4 / 2**20 / r["span_read_s"]
+                                          for r in wide["per_rank"]),
+                   "staging": staging_fs()}
+        emit({"phase": "parallel_path", "part": "handoff", **handoff})
+
+    # 4. RankWriter: two ranks append, one merge
+    ds_root = os.path.join(root, "dataset")
+    with CZDataset(ds_root, "a", spec=CompressionSpec(), device="cuda"):
+        pass
+    corner = p512[:128, :128, :128].cpu().numpy()
+    cubes = {"p": cube_np, "rho": corner}
+    nchunks = 2  # 64 blocks of 32^3 at 32 per 4 MiB chunk
+    writes = {}
+    for rank, q in enumerate(cubes):
+        with RankWriter(ds_root, rank, stats=True, device="cuda") as w:
+            _t, writes[q], _ = counted({"wavelet3d_forward": 1, "wavelet3d_inverse": nchunks},
+                                       f"RankWriter {rank} append",
+                                       lambda: w.append({q: cubes[q]}, t=0, time=T_MAIN))
+    merged, merge_s, _ = counted({}, "merge_manifests", lambda: merge_manifests(ds_root))
+    check(merged == 2, f"parallel_path: merge_manifests merged {merged} entries")
+    check(not any(n.startswith("manifest.rank") for n in os.listdir(ds_root)),
+          f"parallel_path: sidecars left after the merge: {os.listdir(ds_root)}")
+    records = {}
+    with CZDataset(ds_root, device="cuda") as ds:
+        check(ds.quantities == ["p", "rho"], f"parallel_path: quantities {ds.quantities}")
+        for q, want in cubes.items():
+            got, _s, _ = counted({"wavelet3d_inverse": nchunks}, f"dataset read {q}",
+                                 lambda: ds.read_field(q, 0))
+            err = float(np.max(np.abs(got - want)))
+            check(err <= 100 * EPS, f"parallel_path: dataset {q} max error {err}")
+            records[q] = {**ds.timestep_info(q, 0), "read_max_err": err}
+    gc = counted({}, "gc --dry-run", lambda: cli("gc", "--dry-run", ds_root))[0]
+    check(gc == (0, "dataset clean — no orphans\n"), f"parallel_path: gc --dry-run gave {gc}")
+    rank_writer = {"append_s": writes, "merge_s": merge_s, "records": records,
+                   "gc_dry_run": gc[1].strip()}
+
+    # 5. the CLI, with its own pool
+    out = os.path.join(root, "cli")
+    (res, evs), cli_s, _ = counted(
+        {"wavelet3d_forward": 1, "wavelet3d_inverse": 8}, "CLI parallel",
+        lambda: _traced(lambda: cli("parallel", "--ranks", "4", "--n", "128", "--qoi", "p",
+                                    "--check-identical", "--device", "cuda", "--out", out)))
+    code, text = res
+    check(code == 0 and "[bit-identical]" in text,
+          f"parallel_path: the CLI's parallel gave {code}: {text}")
+    ranked(_rank_tracks(evs, 4, "wavelet3d_forward", "CLI parallel"))
+    shutil.rmtree(root, ignore_errors=True)
+    for k, v in rank_launches.items():
+        launched["launches"][k] += v
+    for k, v in rank_sides.items():
+        launched["launches_by_side"][k] = launched["launches_by_side"].get(k, 0) + v
+    return {"n": N_MAIN, "t_us": T_MAIN, "spec": "CompressionSpec() defaults",
+            "cube": [PARALLEL_CUBE.start, PARALLEL_CUBE.stop], "boot": boot,
+            "device_specs": specs, "p512": full, "handoff": handoff,
+            "rank_writer": rank_writer,
+            "cli": {"exit": code, "out": text.strip(), "s": cli_s},
+            "rank_launches": rank_launches, **host, **launched}
+
+
 def _max_abs_diff(got, want) -> float:
     if isinstance(got, tuple):
         return max(_max_abs_diff(a, b) for a, b in zip(got, want))
@@ -1351,7 +1735,7 @@ def _bit_equal(torch, got, want) -> bool:
 
 def kernel_rows(torch, wv, zf, sz, ops, lkern, launches: dict,
                 auto_launches: dict, region_launches: dict,
-                dataset_launches: dict) -> list[dict]:
+                dataset_launches: dict, parallel_launches: dict) -> list[dict]:
     """One row per ported kernel at its path's shapes: the wavelet forward,
     zfpx and lorenzo encode over a QoI's 4096 blocks, the inverse, zfpx and
     lorenzo decode over one read-path chunk of 32 blocks; the wavelet
@@ -1433,6 +1817,7 @@ def kernel_rows(torch, wv, zf, sz, ops, lkern, launches: dict,
             "launches": launches[name], "auto_path_launches": auto_launches[name],
             "region_path_launches": region_launches[name],
             "dataset_path_launches": dataset_launches[name],
+            "parallel_path_launches": parallel_launches[name],
             "max_abs_err": err,
             "ms": kernel_ms(call, symbol, reps, per_call.get(name, 1)),
             "call_ms": median_ms(call, reps),
@@ -1474,8 +1859,7 @@ def main() -> int:
     for lib in libs:  # build from the sources, never from an earlier run
         if lib.exists():
             lib.unlink()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        list(pool.map(_build.load, KERNEL_SOURCES))  # one nvcc per source, together
+    _build.load_all()  # one nvcc per source, all started together
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [str(lib) for lib in libs], "flags": list(_build.NVCC_FLAGS)})
 
@@ -1531,8 +1915,11 @@ def main() -> int:
         emit({"phase": "auto_trials", "seconds": time.perf_counter() - t0, **auto_trials})
         t0 = time.perf_counter()
         dataset_path = phase_dataset(tmp, p512, region["wavelet"], sides)
-        del p512
         emit({"phase": "dataset_path", "seconds": time.perf_counter() - t0, **dataset_path})
+        t0 = time.perf_counter()
+        parallel_path = phase_parallel(tmp, p512, region["wavelet"], sides)
+        del p512
+        emit({"phase": "parallel_path", "seconds": time.perf_counter() - t0, **parallel_path})
         auto_path = run_cli_path(tmp, "auto_path", ["--scheme", "auto", "--target", "abs=1e-3"],
                                  "CompressionSpec(scheme='auto', extra={'target': "
                                  "'abs=1e-3'}): 32^3 blocks, 4 MiB chunks, byte shuffle, "
@@ -1562,7 +1949,8 @@ def main() -> int:
         launches[row] = sum(run["launches_by_side"].get(key, 0) for run in runs)
     t0 = time.perf_counter()
     rows = kernel_rows(torch, wv, zf, sz, ops, lkern, launches, _path_rows(auto_path),
-                       _path_rows(region_path), _path_rows(dataset_path))
+                       _path_rows(region_path), _path_rows(dataset_path),
+                       _path_rows(parallel_path))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     print(card, flush=True)
     emit({"kernels": rows})

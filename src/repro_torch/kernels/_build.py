@@ -7,12 +7,19 @@ instead, see :func:`_build_dir`).  A library is rebuilt when its source changes 
 source's sha256 is kept beside it).  A missing ``nvcc`` or a failed build
 raises with the compiler's output: there is no fallback.
 
+Each library is built once across processes too: :func:`load` holds an
+``flock`` on ``lib<name>.lock`` in the build directory while it checks and
+builds, so rank processes that start together wait for one ``nvcc``
+instead of each running their own.
+
 Nothing here runs at import time; the CPU tests import this module without
 a CUDA toolkit.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -20,7 +27,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "load"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "load", "load_all"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -59,7 +66,6 @@ def _nvcc() -> str:
 
 
 def _build(src: Path, lib: Path, digest: str) -> None:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -74,7 +80,8 @@ def _build(src: Path, lib: Path, digest: str) -> None:
 def load(name: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<name>.cu``, built if missing or
     stale, loaded once per process.  Different sources build concurrently
-    when loaded from different threads."""
+    when loaded from different threads; one source builds once however many
+    threads and processes load it together."""
     with _LOCK:
         lock = _NAME_LOCKS.setdefault(name, threading.Lock())
     with lock:
@@ -82,9 +89,20 @@ def load(name: str) -> ctypes.CDLL:
             return _LOADED[name]
         src = CSRC / f"{name}.cu"
         lib = BUILD_DIR / f"lib{name}.so"
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()
-        stamp = lib.with_suffix(".sha256")
-        if not (lib.exists() and stamp.exists() and stamp.read_text() == digest):
-            _build(src, lib, digest)
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / f"lib{name}.lock", "a") as held:
+            fcntl.flock(held, fcntl.LOCK_EX)  # released when the file closes
+            digest = hashlib.sha256(src.read_bytes()).hexdigest()
+            stamp = lib.with_suffix(".sha256")
+            if not (lib.exists() and stamp.exists() and stamp.read_text() == digest):
+                _build(src, lib, digest)
         _LOADED[name] = ctypes.CDLL(str(lib))
         return _LOADED[name]
+
+
+def load_all() -> None:
+    """Build (where needed) and load every library of ``csrc/``, one
+    ``nvcc`` per source, all started together."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(load, names))

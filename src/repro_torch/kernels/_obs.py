@@ -31,7 +31,7 @@ from repro_torch import obs
 from repro_torch.obs import context as _context
 from repro_torch.obs import trace
 
-__all__ = ["instrument", "launched"]
+__all__ = ["cuda_launches", "instrument", "launched"]
 
 _CALLS = obs.counter(
     "cz_kernel_calls_total", "Kernel wrapper calls.",
@@ -58,6 +58,12 @@ def launched(name: str) -> None:
     """Count one launch of kernel ``name`` (the reference's label) on the
     card; each wrapper calls it where its launch succeeded."""
     _CALLS.inc(kernel=name, device="cuda")
+
+
+def cuda_launches() -> dict[str, int]:
+    """This process's launches on the card so far, per kernel label."""
+    return {labels["kernel"]: v for labels, v in _CALLS.samples()
+            if labels["device"] == "cuda"}
 
 
 def instrument(name: str):

@@ -1,10 +1,10 @@
-"""Ex-situ compression tool of the port (the serial path of
-``repro.launch.compress``).
+"""Ex-situ compression tool of the port (``repro.launch.compress``).
 
 Compresses 3D fields — from the cavitation generator or a .npy file — into
 CZ2 containers on a torch device, reads each back, and reports CR, PSNR,
 max error, max |x| and seconds per quantity (whole write and read, and per pipeline
-stage); or decompresses one container.
+stage); or decompresses one container.  ``parallel`` does the same through N
+rank processes into one shared file per quantity (the paper's cluster tier).
 
 Examples:
   python -m repro_torch.launch.compress --n 512 --t 9.4 --out artifacts/fields
@@ -18,6 +18,9 @@ Examples:
   python -m repro_torch.launch.compress --list-schemes
   python -m repro_torch.launch.compress --decompress artifacts/fields/p.cz \
       --verify-against p.npy
+  python -m repro_torch.launch.compress parallel --ranks 4 --n 128 --out /tmp/fields
+  python -m repro_torch.launch.compress parallel --device cpu --ranks 2 \
+      --check-identical --trace t.json --out file:///tmp/fields
   python -m repro_torch.launch.compress inspect artifacts/fields/p.cz
   python -m repro_torch.launch.compress inspect --json artifacts/fields/p.cz
   python -m repro_torch.launch.compress inspect artifacts/dataset
@@ -32,6 +35,16 @@ target ``--target`` (``abs=V``, ``rel=V`` or ``psnr=DB``; default
 matching statistics.  ``--trace OUT.json`` writes a Chrome trace of the
 run's spans (stage 1, each chunk's encode and decode, trials, kernel
 calls), viewable in Perfetto.
+
+``--out`` is a directory path or a ``file://`` URL: the writers emit local
+files (the ranks of ``parallel`` seek into one shared file), so any other
+store URL is a usage error.  ``parallel --ranks N`` splits the chunk stream
+into N contiguous spans, one per spawned rank process (each runs stage 1 on
+``--device``, default ``cuda``), places the ranks' bytes by an exclusive
+scan and writes the footer; ``--check-identical`` also writes each quantity
+serially on the same device and exits 1 unless the two files are
+bit-identical; ``--trace`` writes one merged Chrome trace, the parent's
+phases and one track per rank.
 
 ``inspect PATH`` prints a container's header, chunk table and CRC verdicts
 (``--json``: the same as one JSON document, ``container.describe``); of a
@@ -87,6 +100,28 @@ def _trace_scope(out_path: str | None):
         print(f"trace written to {trace.save(out_path)}")
 
 
+def _validated_spec(ap: argparse.ArgumentParser,
+                    spec: CompressionSpec) -> CompressionSpec:
+    """Validate a CLI-built spec; an unknown scheme/dtype/... must be a
+    clear usage error (exit 2), never a silent fallback."""
+    try:
+        return spec.validate()
+    except ValueError as e:
+        ap.error(str(e))
+
+
+def _add_tune_args(ap: argparse.ArgumentParser) -> None:
+    """The auto-tuning knobs, shared by the serial and parallel writers."""
+    ap.add_argument("--target", default="", metavar="MODE=VALUE",
+                    help="quality target for --scheme auto: abs=1e-3 "
+                    "(max abs error), rel=1e-4 (x value range), or psnr=80 "
+                    "(dB); default abs=<--eps>")
+    ap.add_argument("--tune-cache", type=int, default=0, metavar="K",
+                    help="with --scheme auto: reuse tuning decisions for "
+                    "chunks with matching stats, re-trialling every K-th "
+                    "occurrence (0 = trial every chunk, the default)")
+
+
 def _tune_extra(ap: argparse.ArgumentParser, args) -> dict:
     """Fold the tuning flags into ``spec.extra``; reject them for fixed
     schemes so a typo'd --scheme never silently drops the quality target."""
@@ -104,6 +139,23 @@ def _is_dataset_root(path: str) -> bool:
     """Store URLs are always dataset roots; plain paths are roots iff they
     are directories (a file path is a single .cz container)."""
     return "://" in path or os.path.isdir(path)
+
+
+def _local_out_dir(ap: argparse.ArgumentParser, out: str) -> str:
+    """Resolve --out for the ex-situ writers, which produce real local files
+    (the rank-parallel engine's processes seek into ONE shared file): plain
+    paths pass through, file:// URLs resolve to their directory, any other
+    store scheme is a usage error."""
+    if "://" not in out:
+        return out
+    from repro_torch.store.backends import FileStore, open_store
+
+    store = open_store(out)
+    if isinstance(store, FileStore):
+        return store.root
+    ap.error(f"--out {out!r}: the ex-situ/parallel writers emit local files "
+             "(rank processes share one seekable file); use a plain path or "
+             "a file:// URL")
 
 
 def _inspect_container(path: str, verify: bool = True, store=None,
@@ -275,6 +327,85 @@ def gc_main(argv) -> int:
     return 0
 
 
+def parallel_main(argv) -> int:
+    """Rank-parallel single-shared-file compression
+    (:mod:`repro_torch.cluster.engine`), stage 1 on ``--device`` in every
+    rank."""
+    from repro_torch.cluster import ParallelCompressor
+    from repro_torch.fields import CloudConfig, cavitation_fields
+
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.compress parallel")
+    ap.add_argument("--ranks", type=int, default=4,
+                    help="worker processes (the MPI-rank stand-in)")
+    ap.add_argument("--source", default="cavitation",
+                    choices=["cavitation", "npy"])
+    ap.add_argument("--npy", default="", help="input .npy for --source npy")
+    ap.add_argument("--t", type=float, default=9.4)
+    ap.add_argument("--n", type=int, default=128)
+    ap.add_argument("--qoi", default="p,rho,E,a2")
+    ap.add_argument("--scheme", default="wavelet")
+    ap.add_argument("--wavelet", default="w3ai")
+    ap.add_argument("--eps", type=float, default=1e-3)
+    ap.add_argument("--block-size", type=int, default=32)
+    ap.add_argument("--shuffle", default="byte")
+    ap.add_argument("--zero-bits", type=int, default=0)
+    ap.add_argument("--stage2", default="zlib")
+    ap.add_argument("--precision", type=int, default=32)
+    ap.add_argument("--device", default=DEFAULT_DEVICE, choices=["cuda", "cpu"],
+                    help="torch device of stage 1 in every rank, of the "
+                    "read-back and of --check-identical's serial write")
+    ap.add_argument("--buffer-bytes", type=int, default=1 << 20)
+    _add_tune_args(ap)
+    ap.add_argument("--out", default="artifacts/fields",
+                    help="output directory (plain path or file:// URL)")
+    ap.add_argument("--check-identical", action="store_true",
+                    help="also write serially and verify the shared file is "
+                    "bit-identical (the engine's core guarantee)")
+    ap.add_argument("--trace", metavar="OUT.json",
+                    help="write one merged Chrome trace (parent phases + a "
+                         "track per rank) — view in Perfetto")
+    args = ap.parse_args(argv)
+    args.out = _local_out_dir(ap, args.out)
+
+    spec = _validated_spec(ap, CompressionSpec(
+        scheme=args.scheme, wavelet=args.wavelet, eps=args.eps,
+        block_size=args.block_size, shuffle=args.shuffle,
+        zero_bits=args.zero_bits, stage2=args.stage2,
+        precision=args.precision, buffer_bytes=args.buffer_bytes,
+        extra=_tune_extra(ap, args)))
+    if args.source == "npy":
+        fields = {"field": np.load(args.npy).astype(np.float32)}
+    else:
+        fields = cavitation_fields(CloudConfig(n=args.n), args.t, device=args.device)
+        fields = {k: v for k, v in fields.items() if k in args.qoi.split(",")}
+    os.makedirs(args.out, exist_ok=True)
+
+    ok = True
+    with _trace_scope(args.trace), \
+            ParallelCompressor(args.ranks, device=args.device) as pc:
+        for name, f in fields.items():
+            path = os.path.join(args.out, f"{name}.cz")
+            t0 = time.perf_counter()
+            nbytes = pc.compress(path, f, spec)
+            dt = time.perf_counter() - t0
+            dec = container.read_field(path, device=args.device)
+            x = f.cpu().numpy() if isinstance(f, torch.Tensor) else f
+            line = (f"{name:5s} ranks={args.ranks} "
+                    f"CR={compression_ratio(x.nbytes, nbytes):8.2f} "
+                    f"PSNR={psnr(x, dec):7.2f} dB "
+                    f"{x.nbytes / 2**20 / dt:6.1f} MB/s -> {path}")
+            if args.check_identical:
+                ref = path + ".serial"
+                container.write_field(ref, f, spec, device=args.device)
+                with open(path, "rb") as a, open(ref, "rb") as b:
+                    same = a.read() == b.read()
+                os.unlink(ref)
+                ok &= same
+                line += f"  [{'bit-identical' if same else 'MISMATCH'}]"
+            print(line)
+    return 0 if ok else 1
+
+
 def _stats_fetch(source: str | None) -> str:
     """One metrics snapshot as Prometheus text, from any stats source."""
     if source is None:
@@ -420,13 +551,16 @@ def stats_main(argv) -> int:
 
 def main(argv=None) -> dict | None:
     """Run the CLI; returns the report it writes to ``report.json`` (``None``
-    for ``--decompress``).  The subcommands ``inspect``, ``gc`` and
-    ``stats`` exit with their status, as the reference's do."""
+    for ``--decompress``).  The subcommands ``inspect``, ``gc``,
+    ``parallel`` and ``stats`` exit with their status, as the reference's
+    do."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "inspect":
         raise SystemExit(inspect_main(argv[1:]))
     if argv and argv[0] == "gc":
         raise SystemExit(gc_main(argv[1:]))
+    if argv and argv[0] == "parallel":
+        raise SystemExit(parallel_main(argv[1:]))
     if argv and argv[0] == "stats":
         raise SystemExit(stats_main(argv[1:]))
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.compress")
@@ -446,23 +580,18 @@ def main(argv=None) -> dict | None:
     ap.add_argument("--zero-bits", type=int, default=0)
     ap.add_argument("--stage2", default="zlib")
     ap.add_argument("--precision", type=int, default=32)
-    ap.add_argument("--target", default="", metavar="MODE=VALUE",
-                    help="quality target for --scheme auto: abs=1e-3 "
-                    "(max abs error), rel=1e-4 (x value range), or psnr=80 "
-                    "(dB); default abs=<--eps>")
-    ap.add_argument("--tune-cache", type=int, default=0, metavar="K",
-                    help="with --scheme auto: reuse tuning decisions for "
-                    "chunks with matching stats, re-trialling every K-th "
-                    "occurrence (0 = trial every chunk, the default)")
+    _add_tune_args(ap)
     ap.add_argument("--device", default=DEFAULT_DEVICE, choices=["cuda", "cpu"],
                     help="torch device of stage 1 and of the decode")
-    ap.add_argument("--out", default="artifacts/fields", help="output directory")
+    ap.add_argument("--out", default="artifacts/fields",
+                    help="output directory (plain path or file:// URL)")
     ap.add_argument("--decompress", default="", metavar="FILE.cz")
     ap.add_argument("--verify-against", default="", metavar="FIELD.npy")
     ap.add_argument("--trace", metavar="OUT.json",
                     help="collect the port's spans (stage1/encode/decode, trials, "
                     "kernel calls) and write a Chrome trace — view in Perfetto")
     args = ap.parse_args(argv)
+    args.out = _local_out_dir(ap, args.out)
 
     if args.list_schemes:
         for name in scheme_names():
@@ -483,14 +612,11 @@ def _body(ap: argparse.ArgumentParser, args) -> dict | None:
                   f"maxerr {np.max(np.abs(ref - field)):.3e}")
         return None
 
-    spec = CompressionSpec(scheme=args.scheme, wavelet=args.wavelet, eps=args.eps,
-                           block_size=args.block_size, shuffle=args.shuffle,
-                           zero_bits=args.zero_bits, stage2=args.stage2,
-                           precision=args.precision, extra=_tune_extra(ap, args))
-    try:
-        spec.validate()
-    except ValueError as e:
-        ap.error(str(e))
+    spec = _validated_spec(ap, CompressionSpec(
+        scheme=args.scheme, wavelet=args.wavelet, eps=args.eps,
+        block_size=args.block_size, shuffle=args.shuffle,
+        zero_bits=args.zero_bits, stage2=args.stage2,
+        precision=args.precision, extra=_tune_extra(ap, args)))
     os.makedirs(args.out, exist_ok=True)
 
     t0 = time.perf_counter()

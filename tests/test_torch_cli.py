@@ -405,3 +405,67 @@ def test_decompress_reads_through_the_store(tmp_path, capsys, monkeypatch):
     assert "decompressed (16, 16, 16)" in capsys.readouterr().out
     assert gets and all(r == str(tmp_path) and k == "rho.cz" and rng is not None
                         for r, k, rng in gets)
+
+
+# -- parallel, and --out as a store URL ----------------------------------------
+
+def test_parallel_files_equal_reference_cli(tmp_path):
+    """``parallel --device cpu --ranks 2 --check-identical --trace``: exit 0,
+    every line ``bit-identical``, the files the reference CLI's ``parallel``
+    writes for the same ``--source npy`` field, and one trace document with
+    the parent's phases and a track per rank."""
+    from repro.launch import compress as rcompress
+
+    f = tcavitation_fields(TCloudConfig(n=32), 9.4, device="cpu")["p"].numpy()
+    np.save(tmp_path / "p.npy", f)
+    # 16^3 blocks, 16 KiB buffers: 8 chunks, 4 per rank
+    common = ["parallel", "--ranks", "2", "--source", "npy", "--npy", str(tmp_path / "p.npy"),
+              "--block-size", "16", "--buffer-bytes", "16384", "--check-identical"]
+    code, out, _err = _cli(compress, [*common, "--device", "cpu", "--out", str(tmp_path / "t"),
+                                      "--trace", str(tmp_path / "t.json")])
+    assert code == 0, out
+    lines = out.splitlines()
+    assert len(lines) == 2 and lines[0].startswith("field ranks=2 CR=")
+    assert lines[0].endswith("[bit-identical]")
+    assert lines[1] == f"trace written to {tmp_path / 't.json'}"
+    assert _cli(rcompress, [*common, "--out", str(tmp_path / "r")])[0] == 0
+    assert (tmp_path / "t" / "field.cz").read_bytes() == \
+        (tmp_path / "r" / "field.cz").read_bytes()
+    assert sorted(os.listdir(tmp_path / "t")) == ["field.cz"]
+    doc = json.loads((tmp_path / "t.json").read_text())
+    tracks = {e["pid"]: e["args"]["name"] for e in doc["traceEvents"]
+              if e["name"] == "process_name"}
+    assert tracks[0] == "rank 0" and tracks[1] == "rank 1"
+    for r in (0, 1):
+        spans = {e["name"] for e in doc["traceEvents"] if e["pid"] == r and e["ph"] == "X"}
+        assert {"encode", "stage1", "commit", "kernel.compile"} <= spans
+    parent = {e["name"] for e in doc["traceEvents"] if e["pid"] not in (0, 1)}
+    assert {"host_copy", "encode", "exscan", "commit", "decode"} <= parent
+
+
+@pytest.mark.parametrize("sub", [[], ["parallel"]], ids=["compress", "parallel"])
+def test_out_store_url_other_than_file_is_a_usage_error(tmp_path, sub):
+    code, _out, err = _cli(compress, [*sub, "--device", "cpu", "--n", "32",
+                                      "--out", "mem://x"])
+    assert code == 2
+    assert "--out 'mem://x': the ex-situ/parallel writers emit local files" in err
+
+
+@pytest.mark.parametrize("sub", [[], ["parallel", "--ranks", "2", "--check-identical",
+                                       "--buffer-bytes", "65536"]],
+                         ids=["compress", "parallel"])
+def test_out_file_url_writes_into_its_directory(tmp_path, monkeypatch, sub):
+    """``--out file://DIR`` writes into DIR, not into a relative directory
+    named after the URL."""
+    monkeypatch.chdir(tmp_path)
+    out = tmp_path / "fields"
+    code, text, err = _cli(compress, [*sub, "--device", "cpu", "--n", "64", "--qoi", "p",
+                                      "--block-size", "16", "--out", f"file://{out}"])
+    assert code == 0, err
+    assert (out / "p.cz").is_file()
+    assert sorted(os.listdir(tmp_path)) == ["fields"]
+    if sub:
+        assert text.startswith("p     ranks=2 ") and "[bit-identical]" in text
+    dec = rcont.read_field(str(out / "p.cz"), device="host")
+    f = tcavitation_fields(TCloudConfig(n=64), 9.4, device="cpu")["p"].numpy()
+    assert np.max(np.abs(dec - f)) <= 100 * EPS

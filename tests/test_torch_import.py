@@ -36,7 +36,11 @@ NEW_MODULES = ("repro_torch.obs", "repro_torch.obs.registry", "repro_torch.obs.c
                "repro_torch.store.backends.object", "repro_torch.store.backends.instrument",
                "repro_torch.store.backends.retry", "repro_torch.store.backends.flaky",
                "repro_torch.store.backends.http", "repro_torch.store.manifest",
-               "repro_torch.store.writer", "repro_torch.store.dataset")
+               "repro_torch.store.writer", "repro_torch.store.dataset",
+               "repro_torch.cluster", "repro_torch.cluster.decompose",
+               "repro_torch.cluster.engine", "repro_torch.cluster.multiwriter",
+               "repro_torch.cluster._env", "repro_torch.dist", "repro_torch.dist.offsets",
+               "repro_torch.dist.fault")
 
 
 def test_new_modules_are_in_the_import_check():
