@@ -197,6 +197,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  CLI's ``parallel --ranks 4 --n 128 --qoi p
                  --check-identical --device cuda`` in-process (its own pool)
                  exits 0, bit-identical.
+   ``serve_path`` the region server (``repro_torch.serve``), run after
+                 parallel_path, over dataset_path's FileStore dataset of the
+                 512^3 p (kept for it) and a 128^3 dataset of parallel_path's
+                 cube each under zfpx and lorenzo (set-up: their encode
+                 launches are checked, not counted), every server in this
+                 process on ``device="cuda"``.  Tiers: region_path's box b
+                 cold (inverse launches = ``cz_serve_chunks_decoded_total``
+                 = its 8 chunks), again (a region-cache hit) and a box over
+                 the same chunks (chunk-cache hits), both with no launch.
+                 Byte identity: box b, a full-depth 32x32x512 column and
+                 one box of each small dataset over HTTP (``raw`` with its
+                 ``X-CZ-*`` headers, and ``npy``) and through
+                 ``FieldRegionServer.query`` equal ``FieldReader.read_box``
+                 on the card; each cold chunk one decode launch of its
+                 scheme's kernel.  Coalescing (``cache_chunks=1``): 16
+                 clients released by a barrier onto box b get identical
+                 bodies, 8 chunks decoded and 8 launches, and coalesced
+                 fetches + region flights joined + region-cache hits = 15.
+                 The HTTP front: a small keep-alive response, a fresh
+                 connection's, and 16 connects at once.  The decode lock:
+                 32 distinct cold 64^3 boxes (64 distinct chunks of the one
+                 member) served to 1, 4 and 16 concurrent clients, a fresh
+                 server per level: wall, queries per s, p50 and p99 from
+                 ``cz_serve_request_seconds`` and the clients' clocks, the
+                 ``cz_reader_decode_seconds`` sum over the wall, launches
+                 (= chunks decoded) and the decode kernel's device time over
+                 the wall (torch.profiler).  Last the CLI's ``serve ROOT
+                 --port 0`` in a subprocess with no ``--device``: its boot
+                 until ``/healthz`` answers, box b bit-equal, ``stats URL``
+                 exits 0 and lists ``cz_serve_queries_total``, SIGINT ends
+                 it with exit 0 after ``shutting down``.
    A kernel's launch count on a path is its wrapper's
    ``cz_kernel_calls_total{device="cuda"}`` series from repro_torch.obs,
    which the wrapper adds one to where its launch succeeded and nowhere
@@ -231,9 +262,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  functions, so there is no library time.  Each row also
                  carries its launches on auto_path (``auto_path_launches``),
                  region_path (``region_path_launches``), dataset_path
-                 (``dataset_path_launches``) and parallel_path
+                 (``dataset_path_launches``), parallel_path
                  (``parallel_path_launches``: the parent's and the ranks',
-                 each rank's read from its own launch sites).
+                 each rank's read from its own launch sites) and serve_path
+                 (``serve_path_launches``).
 
 The parity, bits and kernels lines carry their phase's seconds.  The last
 line is ``{"ok": true, "device": {...}}``.
@@ -246,6 +278,7 @@ import json
 import multiprocessing
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1217,7 +1250,8 @@ def _span_walls(events: list[dict]) -> dict:
     return walls
 
 
-def phase_dataset(tmp: str, p512, wavelet_file: str, sides: list[dict]) -> dict:
+def phase_dataset(tmp: str, p512, wavelet_file: str, sides: list[dict],
+                  keep: str | None = None) -> dict:
     """The dataset store on the card: the 512^3 p (already on the card,
     copied to the host once: ``append`` takes numpy) appended at
     t = T_MAIN into a FileStore ``CZDataset`` with the default spec,
@@ -1242,7 +1276,8 @@ def phase_dataset(tmp: str, p512, wavelet_file: str, sides: list[dict]) -> dict:
     and a second dry run finds the dataset clean.  Every step runs with the
     launch counts set to 0 just before and read just after.  Returns the
     phase's results and its launches summed (per wrapper, and per wrapper
-    and block side)."""
+    and block side).  ``keep`` is a path the ``workers=4`` dataset is moved
+    to (for serve_path) before the rest is removed."""
     import math
 
     import numpy as np
@@ -1366,6 +1401,8 @@ def phase_dataset(tmp: str, p512, wavelet_file: str, sides: list[dict]) -> dict:
     check(again == (0, "dataset clean — no orphans\n"),
           f"dataset_path: the second gc --dry-run gave {again}")
     cli_s = time.perf_counter() - t0
+    if keep:
+        os.replace(roots[4], keep)
     shutil.rmtree(os.path.join(tmp, "dataset"), ignore_errors=True)
     return {"n": N_MAIN, "t_us": T_MAIN, "spec": "CompressionSpec() defaults, stats=True",
             "chunks": nchunks, "cpu_count": os.cpu_count(),
@@ -1718,6 +1755,399 @@ def phase_parallel(tmp: str, p512, wavelet_file: str, sides: list[dict]) -> dict
             "rank_launches": rank_launches, **host, **launched}
 
 
+# serve_path: the region server over dataset_path's 512^3 p (wavelet) and
+# two 128^3 datasets of parallel_path's cube (zfpx, lorenzo)
+SERVE_SCHEMES = ("zfpx", "lorenzo")
+# full depth along x at by = 1: 16 chunks, none of box b's
+SERVE_COLUMN = ((0, 32, 256), (512, 64, 288))
+SERVE_SHIFTED = ((40, 205, 400), (130, 300, 480))  # box b's 8 chunks, other blocks
+SERVE_SMALL_BOX = ((10, 20, 30), (110, 120, 100))  # both chunks of a 128^3 member
+SERVE_COALESCED = 16        # clients released onto one cold box
+SERVE_LEVELS = (1, 4, 16)   # concurrent clients of the decode-lock measurement
+SERVE_LOCK_BOXES = 32       # distinct cold 64^3 boxes per level (2 chunks each)
+
+
+def _http_get(url: str, path: str) -> tuple[int, dict, bytes]:
+    """One GET on a fresh connection: status, headers, body."""
+    from http.client import HTTPConnection
+    from urllib.parse import urlparse
+
+    u = urlparse(url)
+    conn = HTTPConnection(u.hostname, u.port, timeout=120)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        conn.close()
+
+
+def _region_path(lo, hi, fmt: str, quantity: str = "p", t: int = 0) -> str:
+    return (f"/v1/region/{quantity}/{t}?lo={','.join(map(str, lo))}"
+            f"&hi={','.join(map(str, hi))}&format={fmt}")
+
+
+def _connected(url: str, n: int) -> list:
+    """``n`` clients, each with its keep-alive connection opened one after
+    another (a ``/healthz``): the server's listen backlog is 5, and 16
+    connects at once wait out a dropped SYN's 1 s retry (``front``)."""
+    from repro_torch.serve import Client
+
+    clients = [Client(url, timeout=120) for _ in range(n)]
+    for c in clients:
+        check(c.healthz(), f"serve_path: /healthz of {url}")
+    return clients
+
+
+def _hist_quantile(snap: dict, q: float) -> float:
+    """The ``q`` quantile of a histogram snapshot, interpolated linearly
+    inside its bucket (Prometheus' ``histogram_quantile``); the +Inf bucket
+    gives the last finite bound."""
+    total = snap["count"]
+    rank, prev_le, prev_cum = q * total, 0.0, 0
+    for le, cum in snap["buckets"]:
+        if cum >= rank:
+            if le == float("inf"):
+                return prev_le
+            return prev_le + (le - prev_le) * (rank - prev_cum) / max(1, cum - prev_cum)
+        prev_le, prev_cum = le, cum
+    return prev_le
+
+
+def _lock_boxes() -> list:
+    """Distinct 64^3 boxes whose chunks are distinct: box (i, j) covers the
+    blocks bx = 2i, 2i+1 and by = 2j, 2j+1, so the chunks 16i + j and
+    16i + 8 + j (32 blocks of 32^3 per chunk, 16 per (bx, by) pair)."""
+    out = []
+    for i in range(8):
+        for j in range(SERVE_LOCK_BOXES // 8):
+            lo = (64 * i, 64 * j, 64 * ((i + j) % 8))
+            out.append((lo, tuple(v + 64 for v in lo)))
+    return out
+
+
+def phase_serve(tmp: str, p512, wavelet_file: str, root: str, sides: list[dict]) -> dict:
+    """The region server (``repro_torch.serve``) on the card, over
+    dataset_path's FileStore dataset of the 512^3 p (``root``: wavelet, the
+    default spec, main_path's chunks) and one 128^3 dataset each of
+    parallel_path's cube under zfpx and lorenzo (set-up: their appends'
+    encode launches are checked but not counted as serving).  Every server
+    runs in this process, ``device="cuda"``; each step runs with the launch
+    counts set to 0 just before and read just after.
+
+    1. Tiers (a fresh ``RegionHTTPServer``): region_path's unaligned box b
+       cold (one inverse launch per covering chunk, ``/metrics``'
+       ``cz_serve_chunks_decoded_total`` equal), again (a region-cache hit,
+       no launch), and a box over the same chunks (chunk-cache hits, no
+       launch), each body bit-equal to ``FieldReader.read_box`` of
+       main_path's p on the card; the latency of each.
+    2. Byte identity: box b and a full-depth 32x32x512 column over HTTP in
+       ``raw`` and ``npy`` (with the ``X-CZ-Shape``/``X-CZ-Dtype``
+       headers), and through ``FieldRegionServer.query``, equal to
+       ``FieldReader.read_box``; likewise one box of each small dataset,
+       whose cold read launches ``zfpx_decode`` or ``lorenzo_decode`` once
+       per chunk.
+    3. Coalescing: ``cache_chunks=1``, a ``threading.Barrier`` releases
+       16 clients onto box b, cold: 16 identical bodies, the covering
+       chunks decoded once each (launches equal), and coalesced chunk
+       fetches plus region flights joined plus region-cache hits = 15.
+    4. The decode lock: 32 distinct cold 64^3 boxes (64 distinct chunks)
+       served to 1, 4 and 16 concurrent clients, a fresh server per level
+       (``max_inflight=8``, the CLI's default): wall, queries per s, p50 and
+       p99 from ``cz_serve_request_seconds`` and from the clients' clocks,
+       ``cz_reader_decode_seconds`` summed over the wall, inverse launches
+       (= chunks decoded), and the decode kernel's device time over the
+       wall from a torch.profiler trace of the level.
+    5. The CLI: ``python -m repro_torch.launch.compress serve ROOT --port
+       0`` in a subprocess with no ``--device`` (the card is the default):
+       its boot until ``/healthz`` answers, box b bit-equal, ``stats URL``
+       (in-process) exits 0 and lists ``cz_serve_queries_total``, and SIGINT
+       ends it with exit 0 after ``shutting down``."""
+    import threading
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.core import container
+    from repro_torch.core.pipeline import CompressionSpec
+    from repro_torch.serve import Client, RegionHTTPServer
+    from repro_torch.store import CZDataset
+
+    counted, launched = _launch_counter("serve_path", sides)
+    lo_b, hi_b = REGION_BOXES["b_unaligned"]
+
+    steps, mark = {}, [time.perf_counter()]
+
+    def step(name: str) -> None:
+        """The wall seconds since the last step ended, under ``name``."""
+        now = time.perf_counter()
+        steps[name] = now - mark[0]
+        mark[0] = now
+
+    # set-up: the two small datasets (their encodes are not serving)
+    cube = p512[PARALLEL_CUBE, PARALLEL_CUBE, PARALLEL_CUBE].cpu().numpy()
+    roots = {"wavelet": root}
+    setup = {}
+    for scheme in SERVE_SCHEMES:
+        roots[scheme] = os.path.join(tmp, "serve", scheme)
+        _zero_launches(sides)
+        t0 = time.perf_counter()
+        with CZDataset(roots[scheme], "a", spec=CompressionSpec(scheme=scheme),
+                       device="cuda") as ds:
+            ds.append({"p": cube}, time=T_MAIN)
+        setup[scheme] = {"append_s": time.perf_counter() - t0}
+        got = _cuda_launches()
+        check(got[f"{scheme}_encode"] == 1 and sum(got.values()) == 1,
+              f"serve_path: the {scheme} append launched {got}")
+
+    def reference(scheme: str, lo, hi):
+        path = wavelet_file if scheme == "wavelet" else os.path.join(roots[scheme], "p",
+                                                                     "t000000.cz")
+        with container.FieldReader(path, device="cuda") as r:
+            return r.read_box(lo, hi), r.box_chunks(lo, hi)
+
+    want_b, cis_b = reference("wavelet", lo_b, hi_b)
+    want_s, cis_s = reference("wavelet", *SERVE_SHIFTED)
+    want_col, cis_col = reference("wavelet", *SERVE_COLUMN)
+    step("setup")
+    chunks_b = len(cis_b)
+    check(chunks_b == 8 and cis_s == cis_b and len(cis_col) == 16
+          and not set(cis_col) & set(cis_b),
+          f"serve_path: chunks {cis_b}, {cis_s}, {cis_col}")
+
+    def raw_equal(status, headers, body, want) -> bool:
+        return (status == 200 and body == want.tobytes()
+                and headers.get("X-CZ-Shape") == ",".join(map(str, want.shape))
+                and headers.get("X-CZ-Dtype") == "float32")
+
+    def npy_equal(status, body, want) -> bool:
+        return status == 200 and np.lib.format.read_array(io.BytesIO(body)).tobytes() == \
+            want.tobytes()
+
+    # 1. tiers
+    tiers = {}
+    with RegionHTTPServer(root, port=0, device="cuda").start() as srv:
+        for label, (lo, hi), want, launches in (
+                ("cold", (lo_b, hi_b), want_b, chunks_b),
+                ("region_hit", (lo_b, hi_b), want_b, 0),
+                ("chunk_hit", SERVE_SHIFTED, want_s, 0)):
+            before = srv.region.stats()
+            res, dt, _ = counted({"wavelet3d_inverse": launches}, f"tiers {label}",
+                                 lambda lo=lo, hi=hi: _http_get(srv.url,
+                                                                _region_path(lo, hi, "raw")))
+            check(raw_equal(*res, want), f"serve_path: the {label} box differs from read_box")
+            after = srv.region.stats()
+            tiers[label] = {"ms": dt * 1e3, **{k: after[k] - before[k] for k in (
+                "chunks_decoded", "region_cache_hits", "cache_hits", "region_cache_misses")}}
+        with Client(srv.url) as c:
+            decoded = c.metric("cz_serve_chunks_decoded_total")
+        check(decoded == chunks_b and tiers["cold"]["chunks_decoded"] == chunks_b
+              and tiers["region_hit"]["region_cache_hits"] == 1
+              and tiers["chunk_hit"]["chunks_decoded"] == 0
+              and tiers["chunk_hit"]["cache_hits"] == chunks_b,
+              f"serve_path: tiers {tiers}, /metrics decoded {decoded}")
+
+        # 2. byte identity, on the same server: box b is now a region hit
+        def identity():
+            out = {}
+            for name, (lo, hi), want in (("b_unaligned", (lo_b, hi_b), want_b),
+                                         ("column", SERVE_COLUMN, want_col)):
+                out[f"{name} raw"] = raw_equal(*_http_get(srv.url, _region_path(lo, hi, "raw")),
+                                               want)
+                st, _h, body = _http_get(srv.url, _region_path(lo, hi, "npy"))
+                out[f"{name} npy"] = npy_equal(st, body, want)
+                out[f"{name} query"] = srv.region.query("p", 0, lo, hi).tobytes() == \
+                    want.tobytes()
+            return out
+
+        same, ident_s, _ = counted({"wavelet3d_inverse": len(cis_col)}, "identity wavelet",
+                                   identity)
+    for scheme in SERVE_SCHEMES:
+        want, cis = reference(scheme, *SERVE_SMALL_BOX)
+        chunks = len(cis)
+        with RegionHTTPServer(roots[scheme], port=0, device="cuda").start() as srv:
+            def small(srv=srv, want=want):
+                lo, hi = SERVE_SMALL_BOX
+                return {"raw": raw_equal(*_http_get(srv.url, _region_path(lo, hi, "raw")), want),
+                        "npy": npy_equal(*_http_get(srv.url, _region_path(lo, hi, "npy"))[::2],
+                                         want),
+                        "query": srv.region.query("p", 0, lo, hi).tobytes() == want.tobytes()}
+
+            res, dt, _ = counted({f"{scheme}_decode": chunks}, f"identity {scheme}", small)
+            same.update({f"{scheme} {k}": v for k, v in res.items()})
+            setup[scheme].update({"chunks": chunks, "cold_box_ms": dt * 1e3})
+    check(all(same.values()), f"serve_path: bodies differ from read_box: {same}")
+    step("tiers_identity")
+
+    # 3. coalescing
+    with RegionHTTPServer(root, port=0, cache_chunks=1, device="cuda").start() as srv:
+        barrier = threading.Barrier(SERVE_COALESCED)
+        bodies = [None] * SERVE_COALESCED
+        clients = _connected(srv.url, SERVE_COALESCED)
+
+        def fetch(i):
+            with clients[i] as c:
+                barrier.wait()
+                bodies[i] = c.region_raw("p", 0, lo_b, hi_b).tobytes()
+
+        def coalesce():
+            threads = [threading.Thread(target=fetch, args=(i,))
+                       for i in range(SERVE_COALESCED)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+
+        _, coal_s, _ = counted({"wavelet3d_inverse": chunks_b}, "coalescing", coalesce)
+        s = srv.region.stats()
+        with Client(srv.url) as c:
+            coalesced = c.metric("cz_serve_coalesced_requests_total")
+    check(bodies == [want_b.tobytes()] * SERVE_COALESCED,
+          "serve_path: the coalesced clients' bodies differ")
+    joined = coalesced + s["region_flights_joined"] + s["region_cache_hits"]
+    check(s["chunks_decoded"] == chunks_b and joined == SERVE_COALESCED - 1,
+          f"serve_path: coalescing decoded {s['chunks_decoded']}, joined {joined}")
+    step("coalescing")
+    coalescing = {"clients": SERVE_COALESCED, "s": coal_s, "chunks_decoded": s["chunks_decoded"],
+                  "coalesced_requests": coalesced,
+                  "region_flights_joined": s["region_flights_joined"],
+                  "region_cache_hits": s["region_cache_hits"]}
+
+    # the HTTP front itself: a small response on a keep-alive connection
+    # against one on a fresh connection, and 16 connects at once
+    def front():
+        with RegionHTTPServer(root, port=0, device="cuda").start() as srv:
+            def ms(fn, reps=5):
+                times = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    fn()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                return statistics.median(times)
+
+            with Client(srv.url) as c:
+                c.healthz()
+                keepalive = ms(c.healthz)
+            fresh = ms(lambda: _http_get(srv.url, "/healthz"))
+            barrier, waits = threading.Barrier(SERVE_COALESCED), []
+
+            def connect():
+                barrier.wait()
+                t0 = time.perf_counter()
+                with Client(srv.url) as c:
+                    c.healthz()
+                waits.append(time.perf_counter() - t0)
+
+            threads = [threading.Thread(target=connect) for _ in range(SERVE_COALESCED)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            return {"healthz_keepalive_ms": keepalive, "healthz_fresh_ms": fresh,
+                    "connects": SERVE_COALESCED, "connect_max_s": max(waits),
+                    "listen_backlog": srv.request_queue_size}
+
+    front_line, _, _ = counted({}, "front", front)
+    step("front")
+
+    # 4. the decode lock
+    boxes = _lock_boxes()
+    lock, first = {}, None
+    for level in SERVE_LEVELS:
+        with RegionHTTPServer(root, port=0, device="cuda").start() as srv:
+            lat = [[] for _ in range(level)]
+            got = [[] for _ in range(level)]
+            clients = _connected(srv.url, level)
+
+            def client(k):
+                with clients[k] as c:
+                    for lo, hi in boxes[k::level]:
+                        t0 = time.perf_counter()
+                        got[k].append(c.region_raw("p", 0, lo, hi).tobytes())
+                        lat[k].append(time.perf_counter() - t0)
+
+            def run_level():
+                threads = [threading.Thread(target=client, args=(k,)) for k in range(level)]
+                d0 = _reader_sums()["cz_reader_decode_seconds"]
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    for t in threads:
+                        t.start()
+                    for t in threads:
+                        t.join()
+                    wall = time.perf_counter() - t0
+                    torch.cuda.synchronize()
+                us, seen = 0.0, 0
+                for ev in prof.key_averages():
+                    if "wavelet3d_cluster_kernel" in ev.key:
+                        us += ev.device_time_total
+                        seen += ev.count
+                return wall, _reader_sums()["cz_reader_decode_seconds"] - d0, us / 1e6, seen
+
+            (wall, decode_s, kernel_s, seen), _, n = counted(
+                {"wavelet3d_inverse": 2 * len(boxes)}, f"decode lock at {level}", run_level)
+            s = srv.region.stats()
+            snap = srv.region.latency.snapshot()
+        bodies = {box: b for k in range(level) for box, b in zip(boxes[k::level], got[k])}
+        if first is None:
+            first = bodies
+        check(bodies == first and s["chunks_decoded"] == n == 2 * len(boxes)
+              and snap["count"] == len(boxes),
+              f"serve_path: decode lock at {level}: {s['chunks_decoded']} chunks, {n} launches")
+        client_ms = sorted(v * 1e3 for row in lat for v in row)
+        lock[f"clients{level}"] = {
+            "clients": level, "queries": len(boxes), "wall_s": wall,
+            "qps": len(boxes) / wall,
+            "p50_ms": _hist_quantile(snap, 0.5) * 1e3, "p99_ms": _hist_quantile(snap, 0.99) * 1e3,
+            "client_p50_ms": client_ms[len(client_ms) // 2], "client_max_ms": client_ms[-1],
+            "decode_s": decode_s, "decode_share": decode_s / wall,
+            "launches": n, "chunks_decoded": s["chunks_decoded"],
+            "kernel_s": kernel_s, "kernel_share": kernel_s / wall, "profiled_launches": seen}
+    lo, hi = boxes[0]
+    check(first[boxes[0]] == reference("wavelet", lo, hi)[0].tobytes(),
+          "serve_path: a decode-lock box differs from read_box")
+    step("decode_lock")
+
+    # 5. the CLI, in its own process
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.compress", "serve",
+                             root, "--port", "0"], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+    try:
+        first_line = proc.stdout.readline()
+        url = first_line.rsplit(" at ", 1)[-1].strip()
+        check(first_line.startswith(f"serving {root} [p] at http://"),
+              f"serve_path: the CLI printed {first_line!r}")
+        with Client(url, timeout=120) as c:
+            check(c.healthz(), "serve_path: the CLI's /healthz")
+            boot_s = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            box = c.region_raw("p", 0, lo_b, hi_b)
+            cli_box_ms = (time.perf_counter() - t1) * 1e3
+            check(box.tobytes() == want_b.tobytes(), "serve_path: the CLI's box differs")
+        (code, text), _, _ = counted({}, "CLI stats", lambda: cli("stats", url))
+        check(code == 0 and "cz_serve_queries_total" in text,
+              f"serve_path: stats {url} gave {code}")
+        proc.send_signal(signal.SIGINT)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    check(proc.returncode == 0 and out.rstrip().endswith("shutting down"),
+          f"serve_path: the CLI exited {proc.returncode}: {out[-300:]} {err[-300:]}")
+    step("cli")
+    shutil.rmtree(os.path.join(tmp, "serve"), ignore_errors=True)
+    return {"steps_s": steps, "dataset": "dataset_path's 512^3 p (wavelet, 128 chunks) and 128^3 cubes",
+            "setup": setup, "tiers": tiers, "identity_s": ident_s, "identical": same,
+            "coalescing": coalescing, "front": front_line, "decode_lock": lock,
+            "cli": {"boot_s": boot_s, "box_ms": cli_box_ms, "exit": proc.returncode,
+                    "stats_exit": code}, **launched}
+
+
 def _max_abs_diff(got, want) -> float:
     if isinstance(got, tuple):
         return max(_max_abs_diff(a, b) for a, b in zip(got, want))
@@ -1735,7 +2165,8 @@ def _bit_equal(torch, got, want) -> bool:
 
 def kernel_rows(torch, wv, zf, sz, ops, lkern, launches: dict,
                 auto_launches: dict, region_launches: dict,
-                dataset_launches: dict, parallel_launches: dict) -> list[dict]:
+                dataset_launches: dict, parallel_launches: dict,
+                serve_launches: dict) -> list[dict]:
     """One row per ported kernel at its path's shapes: the wavelet forward,
     zfpx and lorenzo encode over a QoI's 4096 blocks, the inverse, zfpx and
     lorenzo decode over one read-path chunk of 32 blocks; the wavelet
@@ -1818,6 +2249,7 @@ def kernel_rows(torch, wv, zf, sz, ops, lkern, launches: dict,
             "region_path_launches": region_launches[name],
             "dataset_path_launches": dataset_launches[name],
             "parallel_path_launches": parallel_launches[name],
+            "serve_path_launches": serve_launches[name],
             "max_abs_err": err,
             "ms": kernel_ms(call, symbol, reps, per_call.get(name, 1)),
             "call_ms": median_ms(call, reps),
@@ -1914,12 +2346,17 @@ def main() -> int:
         auto_trials = phase_auto_trials(torch, wv, zf, sz, ops, p512)
         emit({"phase": "auto_trials", "seconds": time.perf_counter() - t0, **auto_trials})
         t0 = time.perf_counter()
-        dataset_path = phase_dataset(tmp, p512, region["wavelet"], sides)
+        serve_root = os.path.join(tmp, "serve_dataset")
+        dataset_path = phase_dataset(tmp, p512, region["wavelet"], sides, keep=serve_root)
         emit({"phase": "dataset_path", "seconds": time.perf_counter() - t0, **dataset_path})
         t0 = time.perf_counter()
         parallel_path = phase_parallel(tmp, p512, region["wavelet"], sides)
-        del p512
         emit({"phase": "parallel_path", "seconds": time.perf_counter() - t0, **parallel_path})
+        t0 = time.perf_counter()
+        serve_path = phase_serve(tmp, p512, region["wavelet"], serve_root, sides)
+        del p512
+        shutil.rmtree(serve_root, ignore_errors=True)
+        emit({"phase": "serve_path", "seconds": time.perf_counter() - t0, **serve_path})
         auto_path = run_cli_path(tmp, "auto_path", ["--scheme", "auto", "--target", "abs=1e-3"],
                                  "CompressionSpec(scheme='auto', extra={'target': "
                                  "'abs=1e-3'}): 32^3 blocks, 4 MiB chunks, byte shuffle, "
@@ -1950,7 +2387,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = kernel_rows(torch, wv, zf, sz, ops, lkern, launches, _path_rows(auto_path),
                        _path_rows(region_path), _path_rows(dataset_path),
-                       _path_rows(parallel_path))
+                       _path_rows(parallel_path), _path_rows(serve_path))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     print(card, flush=True)
     emit({"kernels": rows})

@@ -26,6 +26,9 @@ Examples:
   python -m repro_torch.launch.compress inspect artifacts/dataset
   python -m repro_torch.launch.compress inspect --stats file:///data/run42
   python -m repro_torch.launch.compress gc --dry-run artifacts/dataset
+  python -m repro_torch.launch.compress serve artifacts/dataset --port 8423
+  python -m repro_torch.launch.compress serve --device cpu --port 0 /tmp/ds
+  python -m repro_torch.launch.compress stats http://127.0.0.1:8423
   python -m repro_torch.launch.compress stats metrics.txt
   python -m repro_torch.launch.compress stats --diff a.json b.json
 
@@ -52,6 +55,9 @@ dataset root (a directory or a store URL: ``file://``, ``mem://``, ...) the
 manifest summary and every member's table (``--json``: ``CZDataset.describe``
 with the members' documents), and ``--stats`` the per-member CR/PSNR table.
 ``gc [--dry-run] ROOT`` lists, then deletes, a dataset's orphaned members.
+``serve ROOT`` answers region queries over HTTP (``/v1/region``,
+``/v1/manifest``, ``/healthz``, ``/metrics``, ``/debug/*``), every cold
+chunk decoded on ``--device`` (default ``cuda``), until SIGINT.
 ``stats [SOURCE]`` pretty-prints a metrics snapshot (a running server's
 ``/metrics``, a file of Prometheus text, ``-`` for stdin, or this process's
 registry), ``--diff A B`` the delta of two JSON snapshots.  Each prints what
@@ -406,6 +412,14 @@ def parallel_main(argv) -> int:
     return 0 if ok else 1
 
 
+def serve_main(argv) -> int:
+    """HTTP region-query service over a CZDataset
+    (:mod:`repro_torch.serve.http`), decoding on ``--device``."""
+    from repro_torch.serve.http import main as http_main
+
+    return http_main(argv)
+
+
 def _stats_fetch(source: str | None) -> str:
     """One metrics snapshot as Prometheus text, from any stats source."""
     if source is None:
@@ -552,8 +566,8 @@ def stats_main(argv) -> int:
 def main(argv=None) -> dict | None:
     """Run the CLI; returns the report it writes to ``report.json`` (``None``
     for ``--decompress``).  The subcommands ``inspect``, ``gc``,
-    ``parallel`` and ``stats`` exit with their status, as the reference's
-    do."""
+    ``parallel``, ``serve`` and ``stats`` exit with their status, as the
+    reference's do."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "inspect":
         raise SystemExit(inspect_main(argv[1:]))
@@ -561,6 +575,8 @@ def main(argv=None) -> dict | None:
         raise SystemExit(gc_main(argv[1:]))
     if argv and argv[0] == "parallel":
         raise SystemExit(parallel_main(argv[1:]))
+    if argv and argv[0] == "serve":
+        raise SystemExit(serve_main(argv[1:]))
     if argv and argv[0] == "stats":
         raise SystemExit(stats_main(argv[1:]))
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.compress")

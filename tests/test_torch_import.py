@@ -40,7 +40,9 @@ NEW_MODULES = ("repro_torch.obs", "repro_torch.obs.registry", "repro_torch.obs.c
                "repro_torch.cluster", "repro_torch.cluster.decompose",
                "repro_torch.cluster.engine", "repro_torch.cluster.multiwriter",
                "repro_torch.cluster._env", "repro_torch.dist", "repro_torch.dist.offsets",
-               "repro_torch.dist.fault")
+               "repro_torch.dist.fault", "repro_torch.serve", "repro_torch.serve.cache",
+               "repro_torch.serve.scheduler", "repro_torch.serve.region",
+               "repro_torch.serve.http")
 
 
 def test_new_modules_are_in_the_import_check():
