@@ -50,7 +50,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  bit for bit: each kernel's input copied to the CPU, the
                  plain forward3d/inverse3d run there, the bits compared
                  (the inverse takes the kernel's forward output).  Every
-                 kind; n in {8, 16, 32, 64}, every level count, B = 64;
+                 kind; n in {8, 16, 32, 64}, every level count, B = 64
+                 (n = 64: B = 8, 2M values a case, as at n = 32);
                  n = 128, B = 1, full depth; amplitudes 50, 1e-36 and 1e-39
                  (subnormal intermediates and inputs); and n = 256, B = 1,
                  w3ai at full depth and amplitude 50.  Reports per case the
@@ -228,6 +229,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  until ``/healthz`` answers, box b bit-equal, ``stats URL``
                  exits 0 and lists ``cz_serve_queries_total``, SIGINT ends
                  it with exit 0 after ``shutting down``.
+   ``insitu_path`` in-situ compression while a simulation runs (the paper's
+                 Fig. 12), run last: the Euler solver
+                 (``repro_torch.fields.euler3d``) on a 5x512^3 float32 state
+                 (8 bubbles, the per-card subdomain of the other paths) for
+                 10 steps on the card, dt from ``cfl_dt``; a
+                 ``FieldSnapshotter(every=5, spec=CompressionSpec(),
+                 workers=4, device="cuda")`` (``repro_torch.ckpt``) takes p
+                 and rho from ``primitives`` at steps 5 and 10 (one forward
+                 launch per field: 4); reopened, ``restore()`` resolves step
+                 10 with one inverse launch per chunk (2 x 128), each field
+                 within 100 eps of the snapshot taken.  At 128^3: a
+                 ``Checkpointer(every=5, keep=2, device="cuda")`` under its
+                 default fpzipx saves ``{"U", "step"}`` at steps 5 and 10,
+                 ``resume`` gives step 10 with U bit-equal to the live
+                 state, and five more steps from each are bit-equal; p
+                 snapshotted by a card and a CPU ``FieldSnapshotter`` has
+                 the same chunk bytes; five steps on the card agree with
+                 five on the CPU within rtol = 1e-5 and atol = 1e-5 of the
+                 largest |value| (tests/test_torch_euler3d.py's 20-step
+                 tolerance).  Prints the seconds per step, peak card memory,
+                 each snapshot's seconds per QoI by its trace spans (the
+                 host copy, ``dataset.write``, its ``stage1`` and
+                 ``encode``, ``dataset.commit``), CR and max error per QoI,
+                 the restore's seconds and the in-situ overhead
+                 ``io_s / (sim_s + io_s)`` as benchmarks/bench_insitu.py
+                 defines it.
    A kernel's launch count on a path is its wrapper's
    ``cz_kernel_calls_total{device="cuda"}`` series from repro_torch.obs,
    which the wrapper adds one to where its launch succeeded and nowhere
@@ -264,8 +291,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  region_path (``region_path_launches``), dataset_path
                  (``dataset_path_launches``), parallel_path
                  (``parallel_path_launches``: the parent's and the ranks',
-                 each rank's read from its own launch sites) and serve_path
-                 (``serve_path_launches``).
+                 each rank's read from its own launch sites), serve_path
+                 (``serve_path_launches``) and insitu_path
+                 (``insitu_path_launches``).
 
 The parity, bits and kernels lines carry their phase's seconds.  The last
 line is ``{"ok": true, "device": {...}}``.
@@ -306,6 +334,9 @@ PARITY_SIDES = ((8, 64), (16, 64), (32, 64), (64, 64), (128, 4), (256, 2))
 LORENZO_PARITY_SIDES = ((4, 64), (6, 64), (7, 64), (8, 64), (10, 64), (16, 64), (24, 64),
                         (25, 64), (32, 64), (33, 64), (64, 64), (128, 2))
 BIT_AMPLITUDES = (AMP, 1e-36, 1e-39)
+# blocks per bits case at n = 64: at 64 blocks its 36 cases held 600M of the
+# phase's 700M values (68-104 s in all); 8 blocks give 2M a case, as n = 32
+BITS_BLOCKS = {64: 8}
 EPS = 1e-3
 ZFPX_BOUND = 16 * EPS       # the zfpx scheme's declared bound
 N_MAIN, T_MAIN = 512, 9.4
@@ -494,8 +525,9 @@ def phase_bits(torch, wv, sz, ops) -> dict:
     difference fails."""
     g = torch.Generator(device="cuda")
     g.manual_seed(90)
-    cases = [(amp, kind, n, lv, 64) for amp in BIT_AMPLITUDES for kind in wv.WAVELETS
-             for n in (8, 16, 32, 64) for lv in range(1, wv.max_levels(n) + 1)]
+    cases = [(amp, kind, n, lv, BITS_BLOCKS.get(n, 64)) for amp in BIT_AMPLITUDES
+             for kind in wv.WAVELETS for n in (8, 16, 32, 64)
+             for lv in range(1, wv.max_levels(n) + 1)]
     cases += [(amp, kind, 128, 5, 1) for amp in BIT_AMPLITUDES for kind in wv.WAVELETS]
     cases.append((AMP, "w3ai", 256, 6, 1))
     per_case, differing, worst = {}, 0, 0.0
@@ -2148,6 +2180,238 @@ def phase_serve(tmp: str, p512, wavelet_file: str, root: str, sides: list[dict])
                     "stats_exit": code}, **launched}
 
 
+# insitu_path: the paper's Fig. 12 on one card.  The solver runs on the
+# per-card subdomain of the other paths; the restart and the card-CPU
+# comparison run at 128^3, where five CPU steps fit the phase's budget.
+INSITU_N = N_MAIN
+INSITU_BUBBLES = 8
+INSITU_STEPS = 10
+INSITU_EVERY = 5
+INSITU_QOIS = ("p", "rho")
+INSITU_WORKERS = 4
+INSITU_SMALL = 128
+INSITU_SMALL_STEPS = 5
+# five steps on the card against the CPU: tests/test_torch_euler3d.py's
+# RUN_TOL (rtol, and atol as a fraction of max |CPU|)
+INSITU_SOLVER_TOL = 1e-5
+
+
+def _snapshot_split(events: list[dict], qois) -> dict:
+    """One snapshot's seconds by its trace spans, per QoI: the host copy of
+    the field, the member's write, within it stage 1 and the chunks'
+    encodes (first start to last end, across the pool's threads), and the
+    rest of the write; and the manifest's commit."""
+    def walls(name, lo=None, hi=None, **args):
+        evs = [e for e in events if e["name"] == name
+               and all(e.get("args", {}).get(k) == v for k, v in args.items())
+               and (lo is None or lo <= e["ts"] <= hi)]
+        check(bool(evs), f"insitu_path: no {name} {args} span in the snapshot's trace")
+        return min(e["ts"] for e in evs), max(e["ts"] + e["dur"] for e in evs)
+
+    out = {}
+    for q in qois:
+        c0, c1 = walls("snapshot.host_copy", quantity=q)
+        w0, w1 = walls("dataset.write", quantity=q)
+        s0, s1 = walls("stage1", w0, w1)
+        e0, e1 = walls("encode", w0, w1)
+        out[q] = {"host_copy": (c1 - c0) / 1e6, "write": (w1 - w0) / 1e6,
+                  "stage1": (s1 - s0) / 1e6, "encode": (e1 - e0) / 1e6,
+                  "write_rest": ((w1 - w0) - (s1 - s0) - (e1 - e0)) / 1e6}
+    m0, m1 = walls("dataset.commit")
+    out["commit"] = (m1 - m0) / 1e6
+    return out
+
+
+def phase_insitu(torch, tmp: str, sides: list[dict]) -> dict:
+    """In-situ compression while the solver runs (the paper's Fig. 12), on
+    the card.
+
+    1. ``init_bubble_cloud(EulerConfig(n=512, n_bubbles=8), "cuda")`` (a
+       5x512^3 float32 state, 2.5 GiB), dt from ``cfl_dt``, 10 ``step``s.
+    2. A ``FieldSnapshotter(every=5, spec=CompressionSpec(), workers=4,
+       device="cuda")`` takes p and rho from ``primitives`` at steps 5 and
+       10: one forward launch per field snapshotted (4).
+    3. The directory reopened, ``restore()`` resolves step 10, one inverse
+       launch per chunk decoded (2 x 128), each field within 100 eps of the
+       snapshot taken.
+    4. At n = 128: a ``Checkpointer(every=5, keep=2, device="cuda")`` saves
+       ``{"U": U, "step": s}`` under its default fpzipx at steps 5 and 10;
+       ``resume`` gives step 10 and U bit-equal to the live state, and five
+       more steps from each are bit-equal.
+    5. At n = 128: p snapshotted by a ``FieldSnapshotter`` with
+       ``device="cuda"`` and one with ``device="cpu"`` have the same chunk
+       bytes; five steps on the card agree with five on the CPU within
+       ``INSITU_SOLVER_TOL``.
+    Every step runs with the launch counts set to 0 just before and read
+    just after.  Prints the solver's seconds per step and peak card memory,
+    each snapshot's seconds per QoI by its trace spans, CR and max error per
+    QoI, the restore's seconds and the in-situ overhead ``io_s / (sim_s +
+    io_s)`` (``benchmarks/bench_insitu.py``): ``sim_s`` the 10 steps,
+    ``io_s`` the two ``maybe_snapshot`` calls, host copies included."""
+    import math
+
+    from repro_torch.ckpt import Checkpointer, FieldSnapshotter, latest_step
+    from repro_torch.core import container
+    from repro_torch.core.pipeline import CompressionSpec
+    from repro_torch.fields import euler3d
+    from repro_torch.obs import trace
+    from repro_torch.store import FileStore
+
+    counted, launched = _launch_counter("insitu_path", sides)
+    base = os.path.join(tmp, "insitu")
+    marks, t_phase = {}, time.perf_counter()
+
+    def mark(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        marks[name] = now - t_phase
+        t_phase = now
+
+    cfg = euler3d.EulerConfig(n=INSITU_N, n_bubbles=INSITU_BUBBLES)
+    U, init_s, _ = counted({}, "init_bubble_cloud",
+                           lambda: euler3d.init_bubble_cloud(cfg, device="cuda"))
+    check(U.shape == (5, INSITU_N, INSITU_N, INSITU_N) and U.device.type == "cuda",
+          f"insitu_path: state {tuple(U.shape)} on {U.device}")
+    dt = euler3d.cfl_dt(U)
+    root = os.path.join(base, "snapshots")
+    snap = FieldSnapshotter(root, every=INSITU_EVERY, spec=CompressionSpec(),
+                            workers=INSITU_WORKERS, device="cuda")
+    step_s, snapshots = [], []
+    mark("init")
+
+    def simulate():
+        nonlocal U
+        taken = {}
+        for s in range(1, INSITU_STEPS + 1):
+            t0 = time.perf_counter()
+            U = euler3d.step(U, dt)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            if s % INSITU_EVERY:
+                continue
+            t0 = time.perf_counter()
+            rho, _vel, p = euler3d.primitives(U)
+            fields = {"p": p, "rho": rho}
+            torch.cuda.synchronize()
+            prim_s = time.perf_counter() - t0
+            trace.reset()
+            trace.enable()
+            t0 = time.perf_counter()
+            t = snap.maybe_snapshot(fields, s)
+            io_s = time.perf_counter() - t0
+            trace.disable()
+            split = _snapshot_split(trace.TRACER.events(), INSITU_QOIS)
+            trace.reset()
+            check(t == len(snapshots), f"insitu_path: step {s} snapshotted as timestep {t}")
+            taken = {q: fields[q].clone() for q in INSITU_QOIS}
+            snapshots.append({"step": s, "t": t, "seconds": io_s, "primitives_s": prim_s,
+                              "by_span": split})
+        return taken
+
+    torch.cuda.reset_peak_memory_stats()
+    nqoi = len(INSITU_QOIS)
+    taken, loop_s, _ = counted({"wavelet3d_forward": nqoi * INSITU_STEPS // INSITU_EVERY},
+                               "solver with snapshots", simulate)
+    peak = torch.cuda.max_memory_allocated()
+    for rec in snapshots:
+        for q in INSITU_QOIS:
+            info = snap.ds.timestep_info(q, rec["t"])
+            rec["by_span"][q]["cr"] = info["raw_bytes"] / info["bytes"]
+    snap.close()
+    mark("solver_and_snapshots")
+
+    nchunks = math.ceil((INSITU_N // 32) ** 3 / 32)
+    again = FieldSnapshotter(root, every=INSITU_EVERY, device="cuda")
+    (fields, rstep), restore_s, _ = counted({"wavelet3d_inverse": nqoi * nchunks}, "restore",
+                                            again.restore)
+    again.close()
+    check(rstep == INSITU_STEPS and sorted(fields) == sorted(INSITU_QOIS),
+          f"insitu_path: restore gave step {rstep}, {sorted(fields)}")
+    max_err = {}
+    for q in INSITU_QOIS:
+        got = torch.from_numpy(fields[q]).to("cuda")
+        max_err[q] = (got.double() - taken[q].double()).abs().max().item()
+        check(max_err[q] <= 100 * EPS, f"insitu_path: restored {q} max error {max_err[q]}")
+    del U, taken, fields
+    mark("restore")
+
+    small = euler3d.init_bubble_cloud(
+        euler3d.EulerConfig(n=INSITU_SMALL, n_bubbles=INSITU_BUBBLES), device="cuda")
+    dts = euler3d.cfl_dt(small)
+    ckdir = os.path.join(base, "ckpt")
+    ck = Checkpointer(ckdir, every=INSITU_EVERY, keep=2, device="cuda")
+    saves = {}
+
+    def checkpointed():
+        Us = small
+        for s in range(1, INSITU_STEPS + 1):
+            Us = euler3d.step(Us, dts)
+            m = ck.maybe_save({"U": Us, "step": s}, s)
+            if m is not None:
+                saves[s] = m["cr"]
+        return Us
+
+    live, ckpt_run_s, _ = counted({}, "checkpointed run at n=128", checkpointed)
+    check(sorted(saves) == [INSITU_EVERY, INSITU_STEPS] and latest_step(ckdir) == INSITU_STEPS,
+          f"insitu_path: checkpoints {sorted(saves)}, latest {latest_step(ckdir)}")
+    template = {"U": torch.zeros(1, device="cuda"), "step": 0}
+    (state, rs), resume_s, _ = counted({}, "resume", lambda: ck.resume(template))
+    check(rs == INSITU_STEPS and int(state["step"]) == INSITU_STEPS,
+          f"insitu_path: resumed step {rs}, state step {int(state['step'])}")
+    check(state["U"].device.type == "cuda"
+          and torch.equal(state["U"].view(torch.int32), live.view(torch.int32)),
+          "insitu_path: the resumed U is not the live U bit for bit")
+    cont = euler3d.run(state["U"], INSITU_SMALL_STEPS, dt=dts)
+    ref = euler3d.run(live, INSITU_SMALL_STEPS, dt=dts)
+    check(torch.equal(cont.view(torch.int32), ref.view(torch.int32)),
+          "insitu_path: five steps after the resume differ from five after the live U")
+    mark("restart")
+
+    p_small = euler3d.primitives(live)[2]
+    chunks = {}
+    for dev, want in (("cuda", {"wavelet3d_forward": 1}), ("cpu", {})):
+        d = os.path.join(base, f"snap_{dev}")
+        sn = FieldSnapshotter(d, spec=CompressionSpec(), device=dev)
+        field = p_small if dev == "cuda" else p_small.cpu()
+        counted(want, f"snapshot at n=128 on {dev}", lambda: sn.maybe_snapshot({"p": field}, 0))
+        sn.close()
+        chunks[dev] = [c for c, _n in container.iter_compressed("p/t000000.cz",
+                                                                store=FileStore(d))]
+    check(chunks["cuda"] == chunks["cpu"],
+          "insitu_path: the card's wavelet snapshot has other chunk bytes than the CPU's")
+    host = live.cpu()
+    t0 = time.perf_counter()
+    on_cpu = euler3d.run(host, INSITU_SMALL_STEPS, dt=dts)
+    cpu_steps_s = time.perf_counter() - t0
+    on_card = ref.cpu()
+    diff = (on_card.double() - on_cpu.double()).abs()
+    scale = on_cpu.abs().max().item()
+    ok = bool((diff <= INSITU_SOLVER_TOL * scale
+               + INSITU_SOLVER_TOL * on_cpu.double().abs()).all())
+    check(ok, f"insitu_path: card vs CPU after {INSITU_SMALL_STEPS} steps: "
+              f"max |diff| {diff.max().item()} (scale {scale})")
+    mark("card_vs_cpu")
+    shutil.rmtree(base, ignore_errors=True)
+
+    sim_s = sum(step_s)
+    io_s = sum(r["seconds"] for r in snapshots)
+    return {"n": INSITU_N, "n_bubbles": INSITU_BUBBLES, "steps": INSITU_STEPS,
+            "every": INSITU_EVERY, "qois": list(INSITU_QOIS), "workers": INSITU_WORKERS,
+            "spec": "CompressionSpec() defaults (w3ai, eps 1e-3, 32^3 blocks)", "dt": dt,
+            "init_s": init_s, "step_s": step_s, "sim_s": sim_s,
+            "peak_mem_bytes": peak, "loop_s": loop_s, "snapshots": snapshots,
+            "io_s": io_s, "overhead": io_s / (sim_s + io_s),
+            "restore_s": restore_s, "restore_chunks": nqoi * nchunks, "max_err": max_err,
+            "restart": {"n": INSITU_SMALL, "run_s": ckpt_run_s, "cr": saves,
+                        "resume_s": resume_s, "bit_equal": True, "after_bit_equal": True},
+            "card_vs_cpu": {"n": INSITU_SMALL, "snapshot_chunks_equal": True,
+                            "chunks": len(chunks["cpu"]), "steps": INSITU_SMALL_STEPS,
+                            "max_abs_diff": diff.max().item(),
+                            "bit_equal": bool((diff == 0).all()), "tol": INSITU_SOLVER_TOL,
+                            "cpu_steps_s": cpu_steps_s},
+            "stages_s": marks, **launched}
+
+
 def _max_abs_diff(got, want) -> float:
     if isinstance(got, tuple):
         return max(_max_abs_diff(a, b) for a, b in zip(got, want))
@@ -2166,7 +2430,7 @@ def _bit_equal(torch, got, want) -> bool:
 def kernel_rows(torch, wv, zf, sz, ops, lkern, launches: dict,
                 auto_launches: dict, region_launches: dict,
                 dataset_launches: dict, parallel_launches: dict,
-                serve_launches: dict) -> list[dict]:
+                serve_launches: dict, insitu_launches: dict) -> list[dict]:
     """One row per ported kernel at its path's shapes: the wavelet forward,
     zfpx and lorenzo encode over a QoI's 4096 blocks, the inverse, zfpx and
     lorenzo decode over one read-path chunk of 32 blocks; the wavelet
@@ -2250,6 +2514,7 @@ def kernel_rows(torch, wv, zf, sz, ops, lkern, launches: dict,
             "dataset_path_launches": dataset_launches[name],
             "parallel_path_launches": parallel_launches[name],
             "serve_path_launches": serve_launches[name],
+            "insitu_path_launches": insitu_launches[name],
             "max_abs_err": err,
             "ms": kernel_ms(call, symbol, reps, per_call.get(name, 1)),
             "call_ms": median_ms(call, reps),
@@ -2368,6 +2633,9 @@ def main() -> int:
         for name, res in region_results.items():
             emit({"phase": "region_path", "container": name, **res})
         emit({"phase": "region_path", "seconds": time.perf_counter() - t0, **region_path})
+        t0 = time.perf_counter()
+        insitu_path = phase_insitu(torch, tmp, sides)
+        emit({"phase": "insitu_path", "seconds": time.perf_counter() - t0, **insitu_path})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's launches on its own path
@@ -2387,7 +2655,8 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = kernel_rows(torch, wv, zf, sz, ops, lkern, launches, _path_rows(auto_path),
                        _path_rows(region_path), _path_rows(dataset_path),
-                       _path_rows(parallel_path), _path_rows(serve_path))
+                       _path_rows(parallel_path), _path_rows(serve_path),
+                       _path_rows(insitu_path))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
     print(card, flush=True)
     emit({"kernels": rows})

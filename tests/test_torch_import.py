@@ -42,7 +42,8 @@ NEW_MODULES = ("repro_torch.obs", "repro_torch.obs.registry", "repro_torch.obs.c
                "repro_torch.cluster._env", "repro_torch.dist", "repro_torch.dist.offsets",
                "repro_torch.dist.fault", "repro_torch.serve", "repro_torch.serve.cache",
                "repro_torch.serve.scheduler", "repro_torch.serve.region",
-               "repro_torch.serve.http")
+               "repro_torch.serve.http", "repro_torch.fields.euler3d", "repro_torch.ckpt",
+               "repro_torch.ckpt.checkpoint")
 
 
 def test_new_modules_are_in_the_import_check():
