@@ -255,6 +255,42 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  the restore's seconds and the in-situ overhead
                  ``io_s / (sim_s + io_s)`` as benchmarks/bench_insitu.py
                  defines it.
+   ``llm_path`` the LLM serve path (``repro_torch.models``, ``serve.step``,
+                 ``launch.serve``), run after insitu_path: the CLI entry
+                 point ``repro_torch.launch.serve.main`` at smollm-135m's
+                 full width (30 layers, d 576, 9 query over 3 KV heads of
+                 64, vocab 49152, tied head; random weights from seed 0) on
+                 the card, B = 4, a 16-token prompt stepped through the
+                 decoder, 32 greedy tokens, float32: the tokens' shape, the
+                 two lines it prints, finite logits, parameters and cache
+                 on the card.  Prints ms per decode step (synchronized; the
+                 CLI's run and a warm second generation, which must give
+                 the same tokens), tokens/s, the bytes bound per step
+                 (every weight and the whole KV cache read once at 3.35
+                 TB/s), peak card memory, and one decode step captured in a
+                 CUDA graph and replayed (its device time without the
+                 host's gaps, within the tolerance below of the eager
+                 step; over the warm step's wall: the device's busy share).
+                 The CLI run's last four positions are teacher-forced again
+                 from copies of its cache, on the card and on the CPU (its
+                 weights copied off the card): each step's logits, the
+                 cache after and the CLI's own last logits, card against
+                 CPU within the tolerance below.  Then ``prefill`` at the
+                 reference's defaults (bf16, masked, q_chunk 256, kv_chunk
+                 512) at B = 4, S = 4096 (prefill_32k's 32 x 32768 cut to
+                 fit), once: seconds, peak memory, finite float32 logits,
+                 held against the float32 prefill of the same weights
+                 (q_chunk 1024, kv_chunk 4096: fewer launches, the same
+                 sums) within 2^-3 of the largest |float32 logit| (below);
+                 torch's bf16 reduced-precision GEMM reduction setting is
+                 printed beside it.  Then each of the ten
+                 ``reduced`` configs, float32 with TF32 off (asserted):
+                 ``prefill`` logits and four ``decode_step``s' logits and
+                 caches on the card against the CPU from the same weights,
+                 within rtol = 1e-4 and atol = 1e-5 of the largest |CPU
+                 value| (tests/test_torch_models.py's tolerance against the
+                 reference).  None of the six kernels runs on this path:
+                 its launch counts must stay 0 (zeroed just before).
    A kernel's launch count on a path is its wrapper's
    ``cz_kernel_calls_total{device="cuda"}`` series from repro_torch.obs,
    which the wrapper adds one to where its launch succeeded and nowhere
@@ -295,8 +331,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  (``serve_path_launches``) and insitu_path
                  (``insitu_path_launches``).
 
-The parity, bits and kernels lines carry their phase's seconds.  The last
-line is ``{"ok": true, "device": {...}}``.
+The parity, bits and kernels lines carry their phase's seconds, and the
+``total`` line the script's.  The last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -2412,6 +2449,304 @@ def phase_insitu(torch, tmp: str, sides: list[dict]) -> dict:
             "stages_s": marks, **launched}
 
 
+# llm_path: the LLM serve path at smollm-135m's full width.  The CLI run is
+# the reference driver's (B 4, prompt 16, 32 new tokens, float32); the
+# prefill is prefill_32k's settings cut to B = 4, S = 4096 (32 x 32768 does
+# not fit the phase's 15 s); every reduced config runs card against CPU.
+LLM_ARCH = "smollm-135m"
+LLM_CLI = ("--arch", LLM_ARCH, "--batch", "4", "--prompt-len", "16", "--max-new", "32")
+LLM_PREFILL_B, LLM_PREFILL_S = 4, 4096
+LLM_GRAPH_REPLAYS = 20
+# card against CPU, float32 on both (TF32 off): the port's CPU tolerance
+# against the reference (tests/test_torch_models.py), the scale max |CPU|
+LLM_RTOL, LLM_ATOL_SCALE = 1e-4, 1e-5
+LLM_SMALL_B, LLM_SMALL_S, LLM_DECODE_STEPS = 2, 16, 4
+# bf16 prefill against float32, as a share of the largest |float32 logit|.
+# bf16 keeps an 8-bit significand (unit roundoff u = 2^-8); the reduced
+# configs' bf16 logits lie within 4u of their float32 ones at 2 layers
+# (tests/test_torch_models.py); independent roundings grow like the root
+# of depth, so 30 layers give ~4u x sqrt(15) ~ 16u, and the bound is twice
+# that: 32u = 2^-3.
+LLM_BF16_REL = 2.0 ** -3
+LLM_F32_PREFILL_CHUNKS = (1024, 4096)
+
+
+def _llm_close(got, want) -> tuple[bool, float, float]:
+    """(within LLM_RTOL and LLM_ATOL_SCALE * max|want|, max |diff|, scale)"""
+    import torch
+
+    got = got.detach().cpu()
+    scale = want.abs().max().item()
+    ok = torch.allclose(got, want, rtol=LLM_RTOL, atol=LLM_ATOL_SCALE * scale)
+    return ok, (got - want).abs().max().item(), scale
+
+
+def _llm_run(torch, cfg, params, toks, frames, xkv, dev: str) -> tuple:
+    """(prefill logits, LLM_DECODE_STEPS decode logits, the cache after) of
+    one reduced config on ``dev``."""
+    from repro_torch.models import ModelSettings, cache_spec, decode_step, prefill
+
+    st = ModelSettings(q_chunk=8, kv_chunk=8, remat="none", compute_dtype=torch.float32)
+    logits = prefill(params, toks.to(dev), cfg, st,
+                     enc_inputs=None if frames is None else frames.to(dev))
+    cache = cache_spec(cfg, toks.shape[0], toks.shape[1], dtype=torch.float32,
+                       mode="zeros", device=dev)
+    for k, v in xkv.items():   # encoder KV, as a prefill would leave it
+        cache[k].copy_(v)
+    steps = []
+    for i in range(LLM_DECODE_STEPS):
+        lg, cache = decode_step(params, cache, toks[:, i:i + 1].to(dev), i, cfg, st)
+        steps.append(lg)
+    return logits, steps, cache
+
+
+def _llm_card_vs_cpu(torch) -> dict:
+    """Each reduced config's prefill logits, and four decode steps' logits
+    and caches, on the card and on the CPU from the same weights; per
+    config the largest |card - CPU| over max |CPU| of each."""
+    import numpy as np
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import init_params
+    from repro_torch.models.common import tree_map
+
+    rows = {}
+    for name in sorted(ARCHS):
+        cfg = reduced(ARCHS[name])
+        rng = np.random.default_rng(0)
+        B, S = LLM_SMALL_B, LLM_SMALL_S
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(np.int32))
+        frames, xkv = None, {}
+        if cfg.family == "encdec":
+            frames = torch.from_numpy(rng.standard_normal((B, cfg.enc_frames, cfg.d_model))
+                                      .astype(np.float32))
+            shape = (cfg.n_layers, B, cfg.enc_frames, cfg.n_kv_heads, cfg.hd)
+            xkv = {k: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                   for k in ("xk", "xv")}
+        cpu_params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        card_params = tree_map(lambda a: a.to("cuda"), cpu_params)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)   # tiny ops: a thread pool costs 10-100x here
+        try:
+            want = _llm_run(torch, cfg, cpu_params, toks, frames, xkv, "cpu")
+        finally:
+            torch.set_num_threads(threads)
+        got = _llm_run(torch, cfg, card_params, toks, frames, xkv, "cuda")
+        pairs = [("prefill", got[0], want[0])]
+        pairs += [(f"decode {i}", a, b) for i, (a, b) in enumerate(zip(got[1], want[1]))]
+        pairs += [(f"cache {k}", got[2][k], want[2][k]) for k in want[2]]
+        worst = {"prefill": 0.0, "decode": 0.0, "cache": 0.0}
+        for what, a, b in pairs:
+            check(a.device.type == "cuda", f"llm_path: {name} {what} on {a.device}")
+            ok, diff, scale = _llm_close(a, b)
+            check(ok, f"llm_path: {name} {what}: card vs CPU max |diff| {diff} at scale "
+                      f"{scale}")
+            kind = what.split()[0]
+            worst[kind] = max(worst[kind], diff / max(scale, 1e-30))
+        rows[name] = worst
+    return rows
+
+
+def _llm_full_vs_cpu(torch, params, cfg, prompt, gen) -> dict:
+    """The CLI run's last LLM_DECODE_STEPS positions teacher-forced again on
+    the card and on the CPU, each from a copy of the run's cache: every
+    step's logits, the cache after, and the CLI's last logits against the
+    CPU's.  Positions past those written are masked, so the cache after the
+    whole run serves as the cache before them."""
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models.common import tree_leaves, tree_map
+
+    seq = torch.cat([prompt, gen.tokens.cpu()], dim=1)   # the token fed at each position
+    n = seq.shape[1]
+    runs = {}
+    for dev, p in (("cuda", params), ("cpu", tree_map(lambda a: a.cpu(), params))):
+        cache = tree_map(lambda a: a.to(dev, copy=True), gen.cache)
+        steps = []
+        for pos in range(n - LLM_DECODE_STEPS, n):
+            lg, cache = lserve.decode_step(p, cache, seq[:, pos:pos + 1].to(dev), pos, cfg,
+                                           lserve.SETTINGS)
+            steps.append(lg)
+        runs[dev] = steps, cache
+    (card, card_cache), (cpu, cpu_cache) = runs["cuda"], runs["cpu"]
+    pairs = [(f"step {n - LLM_DECODE_STEPS + i}", a, b) for i, (a, b) in enumerate(zip(card, cpu))]
+    pairs.append(("the CLI's last logits", gen.logits, cpu[-1]))
+    pairs += [(f"cache {'/'.join(k)}", a, dict(tree_leaves(cpu_cache))[k])
+              for k, a in tree_leaves(card_cache)]
+    pairs += [(f"the CLI's cache {'/'.join(k)}", a, dict(tree_leaves(cpu_cache))[k])
+              for k, a in tree_leaves(gen.cache)]
+    worst = {"logits": 0.0, "cache": 0.0}
+    for what, a, b in pairs:
+        check(a.device.type == "cuda", f"llm_path: full width {what} on {a.device}")
+        ok, diff, scale = _llm_close(a, b)
+        check(ok, f"llm_path: full width {what}: card vs CPU max |diff| {diff} at scale {scale}")
+        kind = "cache" if "cache" in what else "logits"
+        worst[kind] = max(worst[kind], diff / max(scale, 1e-30))
+    return {"positions": [n - LLM_DECODE_STEPS, n - 1], "max_rel_diff": worst}
+
+
+def phase_llm(torch, sides: list[dict]) -> dict:
+    """The LLM serve path on the card: the CLI at full width, a bf16
+    prefill, and the reduced configs card against CPU."""
+    import numpy as np
+
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models import ModelSettings, prefill
+    from repro_torch.models.common import tree_leaves
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "llm_path: TF32 matmuls are on; the float32 comparisons need them off")
+    counted, launched = _launch_counter("llm_path", sides)
+    marks, t_mark = {}, time.perf_counter()
+
+    def mark(name: str) -> None:
+        nonlocal t_mark
+        now = time.perf_counter()
+        marks[name] = now - t_mark
+        t_mark = now
+
+    seen = {}
+    generate = lserve.generate
+
+    def recording(params, cfg, prompt, max_new):
+        seen["params"], seen["cfg"] = params, cfg
+        seen["gen"] = generate(params, cfg, prompt, max_new)
+        return seen["gen"]
+
+    torch.cuda.reset_peak_memory_stats()
+    lserve.generate = recording
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            toks, cli_s, _ = counted({}, "the CLI", lambda: lserve.main(list(LLM_CLI)))
+    finally:
+        lserve.generate = generate
+    peak = torch.cuda.max_memory_allocated()
+    lines = out.getvalue().splitlines()
+    mark("cli")
+    params, cfg, gen = seen["params"], seen["cfg"], seen["gen"]
+    B, P, new = 4, 16, 32
+    check(toks.shape == (B, new) and ((toks >= 0) & (toks < cfg.vocab)).all(),
+          f"llm_path: tokens {toks.shape}")
+    check(cfg.d_model == 576 and cfg.n_layers == 30 and cfg.vocab == 49152,
+          f"llm_path: not smollm-135m's full width: {cfg}")
+    check(bool(torch.isfinite(gen.logits).all()), "llm_path: non-finite logits")
+    param_leaves = [a for _, a in tree_leaves(params)]
+    cache_leaves = [a for _, a in tree_leaves(gen.cache)]
+    check(all(a.device.type == "cuda" for a in param_leaves),
+          "llm_path: parameters not on the card")
+    check(all(a.device.type == "cuda" for a in cache_leaves), "llm_path: cache not on the card")
+    check(len(lines) == 2 and lines[0].startswith(f"decoded ({B}, {new}) in ")
+          and lines[1] == f"sample: {toks[0][:16].tolist()}", f"llm_path: CLI printed {lines}")
+    n_params = sum(a.numel() for a in param_leaves)
+    param_bytes = sum(a.numel() * a.element_size() for a in param_leaves)
+    cache_bytes = sum(a.numel() * a.element_size() for a in cache_leaves)
+    # a step reads every weight once (the tied embedding as the head) and
+    # the whole KV cache (every position is scored, the mask applied after)
+    bound_ms = (param_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    steps = P + new   # the prompt is stepped through the decoder too
+    cli_ms = gen.seconds / steps * 1e3
+    # warm: the same generation again
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (B, P))
+                              .astype(np.int32))
+    with torch.inference_mode():
+        warm = lserve.generate(params, cfg, prompt, new)
+        check(torch.equal(warm.tokens.cpu(), torch.from_numpy(toks)),
+              "llm_path: a second generation from the same prompt gave other tokens")
+        torch.cuda.synchronize()
+        mark("warm")
+        # the same step's device work without the host between kernels: one
+        # decode step captured in a CUDA graph, replayed back to back
+        cache, tok, pos = warm.cache, warm.tokens[:, -1:], P + new - 1
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                lserve.decode_step(params, cache, tok, pos, cfg, lserve.SETTINGS)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            glogits, _ = lserve.decode_step(params, cache, tok, pos, cfg, lserve.SETTINGS)
+        graph_ms = median_ms(graph.replay, LLM_GRAPH_REPLAYS)
+        eager_logits, _ = lserve.decode_step(params, cache, tok, pos, cfg, lserve.SETTINGS)
+        graph.replay()
+        torch.cuda.synchronize()
+        graph_ok, graph_diff, _ = _llm_close(glogits, eager_logits.cpu())
+        check(graph_ok, f"llm_path: the graph's step is {graph_diff} off the eager step")
+    warm_ms = warm.seconds / steps * 1e3
+    busy = graph_ms / warm_ms
+    mark("graph")
+    with torch.inference_mode():
+        full = _llm_full_vs_cpu(torch, params, cfg, prompt, gen)
+    mark("full_vs_cpu")
+
+    # prefill: the reference's default settings (bf16, masked, q 256, kv 512)
+    st = ModelSettings()
+    ptoks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (LLM_PREFILL_B, LLM_PREFILL_S)).astype(np.int32)).cuda()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        logits = prefill(params, ptoks, cfg, st)
+        torch.cuda.synchronize()
+        return logits
+
+    with torch.inference_mode():
+        logits, prefill_s, _ = counted({}, "prefill", run)
+    prefill_peak = torch.cuda.max_memory_allocated()
+    check(logits.shape == (LLM_PREFILL_B, cfg.vocab) and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()), "llm_path: prefill logits")
+    prefill_tok_s = LLM_PREFILL_B * LLM_PREFILL_S / prefill_s
+    mark("prefill")
+    # the same weights and tokens in float32 (TF32 off, asserted above)
+    qc, kc = LLM_F32_PREFILL_CHUNKS
+    st32 = ModelSettings(q_chunk=qc, kv_chunk=kc, compute_dtype=torch.float32)
+    with torch.inference_mode():
+        ref32 = prefill(params, ptoks, cfg, st32)
+    err = (logits - ref32).abs()
+    scale32 = ref32.abs().max().item()
+    bf16_vs_f32 = {"max_abs": err.max().item(), "scale": scale32,
+                   "max_rel": err.max().item() / scale32,
+                   "rel_l2": (torch.linalg.vector_norm(logits - ref32)
+                              / torch.linalg.vector_norm(ref32)).item(),
+                   "argmax_agree": (logits.argmax(-1) == ref32.argmax(-1)).float().mean().item(),
+                   "bound_rel": LLM_BF16_REL, "f32_chunks": [qc, kc],
+                   "bf16_reduced_precision_reduction":
+                       torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}
+    check(bool(torch.isfinite(ref32).all()) and err.max().item() <= LLM_BF16_REL * scale32,
+          f"llm_path: bf16 prefill {bf16_vs_f32['max_abs']} off the float32 one at scale "
+          f"{scale32} (bound {LLM_BF16_REL} of it)")
+    del ref32, err
+    mark("prefill_f32")
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        small = _llm_card_vs_cpu(torch)
+    small_s = time.perf_counter() - t0
+    mark("card_vs_cpu")
+    return {"arch": LLM_ARCH, "cli": list(LLM_CLI), "cli_s": cli_s, "cli_lines": lines,
+            "n_params": n_params, "param_bytes": param_bytes, "cache_bytes": cache_bytes,
+            "peak_mem_bytes": peak,
+            "ms_per_step": {"cli": cli_ms, "warm": warm_ms},
+            "tokens_per_s": {"cli_incl_prefill": B * steps / gen.seconds,
+                             "warm_decode": B / (warm_ms / 1e3)},
+            "bound_ms_per_step": bound_ms, "bound_by": "bytes",
+            "graph_ms_per_step": graph_ms, "graph_vs_eager_max_abs": graph_diff,
+            "device_busy_share": busy,
+            "prefill": {"batch": LLM_PREFILL_B, "seq": LLM_PREFILL_S,
+                        "settings": "ModelSettings() defaults: bf16, masked, q 256, kv 512",
+                        "seconds": prefill_s, "tokens_per_s": prefill_tok_s,
+                        "peak_mem_bytes": prefill_peak,
+                        "reduced": "prefill_32k's B 32 x S 32768 cut to 4 x 4096",
+                        "vs_f32": bf16_vs_f32},
+            "full_width_vs_cpu": {"rtol": LLM_RTOL, "atol": f"{LLM_ATOL_SCALE} x max|cpu|",
+                                  **full},
+            "card_vs_cpu": {"rtol": LLM_RTOL, "atol": f"{LLM_ATOL_SCALE} x max|cpu|",
+                            "batch": LLM_SMALL_B, "seq": LLM_SMALL_S,
+                            "decode_steps": LLM_DECODE_STEPS, "max_rel_diff": small,
+                            "seconds": small_s},
+            "stages_s": marks, **launched}
+
+
 def _max_abs_diff(got, want) -> float:
     if isinstance(got, tuple):
         return max(_max_abs_diff(a, b) for a, b in zip(got, want))
@@ -2526,6 +2861,7 @@ def kernel_rows(torch, wv, zf, sz, ops, lkern, launches: dict,
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2636,6 +2972,9 @@ def main() -> int:
         t0 = time.perf_counter()
         insitu_path = phase_insitu(torch, tmp, sides)
         emit({"phase": "insitu_path", "seconds": time.perf_counter() - t0, **insitu_path})
+        t0 = time.perf_counter()
+        llm_path = phase_llm(torch, sides)
+        emit({"phase": "llm_path", "seconds": time.perf_counter() - t0, **llm_path})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's launches on its own path
@@ -2658,6 +2997,7 @@ def main() -> int:
                        _path_rows(parallel_path), _path_rows(serve_path),
                        _path_rows(insitu_path))
     emit({"phase": "kernels", "seconds": time.perf_counter() - t0})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_script})
     print(card, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,217 @@
+"""GQA attention, forward only: chunked streaming-softmax (flash-style)
+(port of ``repro.models.attention``).
+
+Plain torch ops in the reference's chunk structure: an outer loop over
+query chunks, an inner loop over KV chunks carrying the running (max,
+denominator, accumulator), so no (S, S) score tensor is materialized.
+
+Causal modes:
+* ``impl="masked"``      — every q-chunk scans all kv chunks;
+* ``impl="triangular"``  — q-chunk i scans only kv chunks [0..i];
+* ``impl="cp"``          — all q chunks at once, one loop over kv chunks
+                           (the reference's context-parallel form, here on
+                           one device).
+
+The backward (the reference's custom VJP) and the mesh shardings are not
+ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from .common import einsum, rmsnorm, rope
+
+__all__ = ["attention", "decode_attention", "flash_attention"]
+
+NEG_INF = -1e30
+
+
+def _divisor_chunk(chunk: int, S: int) -> int:
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    return c
+
+
+def _mask_block(s, qi, ki, qc, kc, q_offset):
+    qpos = q_offset + qi * qc + torch.arange(qc, device=s.device)
+    kpos = ki * kc + torch.arange(kc, device=s.device)
+    mask = kpos[None, :] <= qpos[:, None]
+    return torch.where(mask[None, None, None], s, NEG_INF)
+
+
+def _fwd_qchunk(qblk, kg, vg, qi, nk_hi, *, causal, qc, kc, q_offset, scale):
+    """One q chunk over kv chunks [0..nk_hi). qblk (B,qc,Hkv,G,hd).
+    Returns (out (B,qc,Hkv,G,hd) f32, lse (B,Hkv,G,qc) f32)."""
+    B, _, Hkv, G, hd = qblk.shape
+    dev = qblk.device
+    m = torch.full((B, Hkv, G, qc), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hkv, G, qc), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hkv, G, qc, hd), dtype=torch.float32, device=dev)
+    for ki in range(nk_hi):
+        kblk, vblk = kg[:, ki], vg[:, ki]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kblk).float() * scale
+        if causal:
+            s = _mask_block(s, qi, ki, qc, kc, q_offset)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(vblk.dtype), vblk).float()
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4), lse  # (B,qc,Hkv,G,hd), (B,Hkv,G,qc)
+
+
+def _cp_mask(s, nq, qc, kc, ki, q_offset):
+    dev = s.device
+    qpos = (q_offset + (torch.arange(nq, device=dev) * qc)[:, None]
+            + torch.arange(qc, device=dev)[None, :])
+    kpos = ki * kc + torch.arange(kc, device=dev)
+    mask = kpos[None, None, :] <= qpos[:, :, None]          # (nq, qc, kc)
+    return torch.where(mask[None, :, None, None, :, :], s, NEG_INF)
+
+
+def _fwd_cp(qg, kg, vg, *, causal, qc, kc, q_offset, scale):
+    """All q chunks vectorized (dim 1), one loop over kv chunks."""
+    B, nq, _, Hkv, G, hd = qg.shape
+    nk = kg.shape[1]
+    dev = qg.device
+    m = torch.full((B, nq, Hkv, G, qc), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, nq, Hkv, G, qc), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, nq, Hkv, G, qc, hd), dtype=torch.float32, device=dev)
+    for ki in range(nk):
+        kblk, vblk = kg[:, ki], vg[:, ki]
+        s = torch.einsum("bnqhgd,bkhd->bnhgqk", qg, kblk).float() * scale
+        if causal:
+            s = _cp_mask(s, nq, qc, kc, ki, q_offset)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bnhgqk,bkhd->bnhgqd", p.to(vblk.dtype), vblk)
+        acc = acc * alpha[..., None] + pv.float()
+        m = m_new
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.permute(0, 1, 4, 2, 3, 5)                       # (B,nq,qc,Hkv,G,hd)
+    return out, lse                                          # lse (B,nq,Hkv,G,qc)
+
+
+def _flash_fwd_impl(q, k, v, causal, q_chunk, kv_chunk, q_offset, impl):
+    """(out (B,Sq,Hq,hd) in q's dtype, lse (B,nq,Hkv,G,qc) f32)."""
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qc = _divisor_chunk(q_chunk, Sq)
+    kc = _divisor_chunk(kv_chunk, Skv)
+    nq, nk = Sq // qc, Skv // kc
+    scale = hd ** -0.5
+    qg = q.reshape(B, nq, qc, Hkv, G, hd)
+    kg = k.reshape(B, nk, kc, Hkv, hd)
+    vg = v.reshape(B, nk, kc, Hkv, hd)
+
+    kw = dict(causal=causal, qc=qc, kc=kc, q_offset=q_offset, scale=scale)
+    if impl == "cp":
+        out, lse = _fwd_cp(qg, kg, vg, **kw)
+        return out.reshape(B, Sq, Hq, hd).to(q.dtype), lse
+    outs, lses = [], []
+    for qi in range(nq):
+        if impl == "triangular" and causal:
+            hi = min(nk, -(-((qi + 1) * qc) // kc))
+        else:
+            hi = nk
+        o, lse = _fwd_qchunk(qg[:, qi], kg, vg, qi, hi, **kw)
+        outs.append(o)
+        lses.append(lse)
+    out = torch.stack(outs, 1)          # (B,nq,qc,Hkv,G,hd)
+    lse = torch.stack(lses, 1)          # (B,nq,Hkv,G,qc)
+    return out.reshape(B, Sq, Hq, hd).to(q.dtype), lse
+
+
+def flash_attention(q, k, v, *, causal: bool, q_chunk: int = 256,
+                    kv_chunk: int = 512, impl: str = "masked",
+                    q_offset: int = 0, shard_axes=None):
+    """q (B,Sq,Hq,hd); k,v (B,Skv,Hkv,hd); Hq = Hkv*G -> (B,Sq,Hq,hd).
+
+    ``shard_axes`` (the reference's context-parallel mesh axes) must be
+    ``None``: one device computes every chunk."""
+    if shard_axes is not None:
+        raise NotImplementedError("sharded flash attention arrives with the "
+                                  "training slice (ROADMAP item 10b)")
+    out, _ = _flash_fwd_impl(q, k, v, causal, q_chunk, kv_chunk, q_offset, impl)
+    return out
+
+
+def _project_qkv(x, p, cfg, positions, use_rope=True):
+    B, S, D = x.shape
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = torch.einsum("bsd,dh->bsh", x, p["wq"])
+    k = torch.einsum("bsd,dh->bsh", x, p["wk"])
+    v = torch.einsum("bsd,dh->bsh", x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, Hq, hd)
+    k = k.reshape(B, S, Hkv, hd)
+    v = v.reshape(B, S, Hkv, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["qnorm"], cfg.norm_eps)
+        k = rmsnorm(k, p["knorm"], cfg.norm_eps)
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attention(x, p, cfg, *, causal=True, impl="masked", q_chunk=256,
+              kv_chunk=512, attn_shard="auto", batch_axes=("data",),
+              n_model=1):
+    """Full-sequence attention (train/prefill). x: (B,S,D).
+
+    ``attn_shard="cp"`` computes with the context-parallel impl, as the
+    reference does on any mesh.  ``"replicate"`` and ``"heads"`` place q/k/v
+    on a mesh's "model" axis; with ``n_model > 1`` they raise, since the
+    port has no mesh yet (ROADMAP item 10b).  ``batch_axes`` names mesh axes
+    and is unused on one device."""
+    if attn_shard in ("replicate", "heads") and n_model > 1:
+        raise NotImplementedError(
+            f"attn_shard={attn_shard!r} over a {n_model}-way model axis needs the "
+            "mesh shardings of the training slice (ROADMAP item 10b)")
+    B, S, D = x.shape
+    use_rope = cfg.family != "encdec"
+    positions = torch.arange(S, device=x.device)[None, :]
+    q, k, v = _project_qkv(x, p, cfg, positions, use_rope)
+    if attn_shard == "cp":
+        impl = "cp"
+    o = flash_attention(q, k, v, causal=causal, impl=impl,
+                        q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return torch.einsum("bsh,hd->bsd", o.reshape(B, S, -1), p["wo"])
+
+
+def decode_attention(x, p, cfg, cache, pos: int):
+    """Single-token decode. x: (B,1,D); cache: dict(k,v) (B,S,Hkv,hd).
+
+    The new KV is written into ``cache`` in place at ``pos``, clamped into
+    [0, S-1] as ``lax.dynamic_update_slice_in_dim`` clamps it; attention
+    masks positions > ``pos`` (unclamped).  Returns (out, cache)."""
+    B, _, D = x.shape
+    Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    S = cache["k"].shape[1]
+    use_rope = cfg.family != "encdec"
+    positions = torch.full((B, 1), pos, device=x.device)
+    q, k_new, v_new = _project_qkv(x, p, cfg, positions, use_rope)
+    at = min(max(pos, 0), S - 1)
+    k, v = cache["k"], cache["v"]
+    k[:, at:at + 1] = k_new
+    v[:, at:at + 1] = v_new
+    G = Hq // Hkv
+    qg = q.reshape(B, 1, Hkv, G, hd)
+    s = einsum("bqhgd,bkhd->bhgqk", qg, k).float() * hd ** -0.5
+    mask = torch.arange(S, device=x.device)[None, None, None, None, :] <= pos
+    s = torch.where(mask, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype), v)
+    out = einsum("bsh,hd->bsd", o.reshape(B, 1, Hq * hd), p["wo"])
+    return out, {"k": k, "v": v}

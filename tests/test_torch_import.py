@@ -43,7 +43,13 @@ NEW_MODULES = ("repro_torch.obs", "repro_torch.obs.registry", "repro_torch.obs.c
                "repro_torch.dist.fault", "repro_torch.serve", "repro_torch.serve.cache",
                "repro_torch.serve.scheduler", "repro_torch.serve.region",
                "repro_torch.serve.http", "repro_torch.fields.euler3d", "repro_torch.ckpt",
-               "repro_torch.ckpt.checkpoint")
+               "repro_torch.ckpt.checkpoint", "repro_torch.configs", "repro_torch.configs.base",
+               "repro_torch.configs.smollm_135m", "repro_torch.configs.jamba_v0_1_52b",
+               "repro_torch.models", "repro_torch.models.common",
+               "repro_torch.models.attention", "repro_torch.models.moe",
+               "repro_torch.models.ssm", "repro_torch.models.transformer",
+               "repro_torch.models.registry", "repro_torch.models.convert",
+               "repro_torch.serve.step", "repro_torch.launch.serve")
 
 
 def test_new_modules_are_in_the_import_check():
