@@ -291,6 +291,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  value| (tests/test_torch_models.py's tolerance against the
                  reference).  None of the six kernels runs on this path:
                  its launch counts must stay 0 (zeroed just before).
+   ``train_path`` training on one card (``repro_torch.train``,
+                 ``data.tokens``, the flash backward, ``launch.train``), run
+                 after llm_path, TF32 off (asserted): the CLI entry point
+                 ``repro_torch.launch.train.main`` at smollm-135m's full
+                 width on the card, the reference driver's B = 8, S = 64,
+                 float32, no remat, 12 steps from random weights (seed 0):
+                 every loss finite, every state leaf on the card and float32
+                 (step int32), its lines.  Prints ms per step (each step
+                 synchronized; the median of the steps after the first
+                 two), tokens/s, peak card memory and the step's bounds:
+                 6 N tokens flops (``models.costs.model_flops``) at 67
+                 TFLOP/s, and AdamW's bytes (p, m, v read and written, g
+                 read: 7 float32 passes over the parameters) at 3.35 TB/s.
+                 Then each of the ten ``reduced`` configs takes one train
+                 step on the card and on the CPU from the same state and
+                 batch: loss and grad_norm within rtol 1e-5, m and the new
+                 params within the tolerances at ``TRAIN_RTOL`` below.  Then
+                 the reduced smollm-135m through ``main`` with
+                 ``--fail-at-step 6 --ckpt-every 5``: SystemExit(17) and a
+                 step-5 checkpoint; the rerun prints ``[resume] from step
+                 5`` and runs 7 steps whose losses agree with an
+                 uninterrupted card run's within 1e-5 relative (the
+                 embedding's backward sums with atomics on the card).  None
+                 of the six kernels runs on this path: its launch counts
+                 must stay 0 (zeroed just before each run).
    A kernel's launch count on a path is its wrapper's
    ``cz_kernel_calls_total{device="cuda"}`` series from repro_torch.obs,
    which the wrapper adds one to where its launch succeeded and nowhere
@@ -2747,6 +2772,221 @@ def phase_llm(torch, sides: list[dict]) -> dict:
             "stages_s": marks, **launched}
 
 
+# train_path: training on one card.  The CLI run is the reference driver's
+# (B 8, S 64, float32, no remat) at smollm-135m's full width, 12 steps; the
+# ten reduced configs take one step on the card and on the CPU; the reduced
+# smollm is killed at step 6 and resumed from its step-5 checkpoint.
+TRAIN_ARCH = "smollm-135m"
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_COLD = 8, 64, 12, 2   # the first 2 steps warm up
+TRAIN_CLI = ("--arch", TRAIN_ARCH, "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+             "--steps", str(TRAIN_STEPS), "--log-every", "4")
+TRAIN_KILL = ("--arch", TRAIN_ARCH, "--reduced", "--steps", "12", "--batch", "2", "--seq",
+              "32", "--ckpt-every", "5", "--log-every", "4")
+# one step card against CPU, float32 (TF32 off), each against its scale (its
+# largest |CPU value|): loss and grad_norm rtol 1e-5; m = (1 - b1) g within
+# 1e-4 of the scale (tests/_torch_train.py's grad tolerance); each new
+# parameter within lr min(2, 2e-4 max|m| / (|m| + (1 - b1) eps)) + 1e-6 of
+# the scale: Adam's first update is lr r with r = g / (|g| + eps) in
+# (-1, 1), and |dr| <= |dg| / (|g| + eps), so a grad that may move by 1e-4
+# of its scale moves r by at most that over |g| + eps, and by 2 at most
+# (tests/test_torch_train_step.py)
+TRAIN_RTOL, TRAIN_M_SCALE, TRAIN_P_SCALE = 1e-5, 1e-4, 1e-6
+# the resumed run's losses against an uninterrupted card run: the embedding's
+# backward sums with atomics on CUDA, so not bit for bit
+TRAIN_RESUME_RTOL = 1e-5
+
+
+def _train_card_vs_cpu(torch) -> dict:
+    """One train step of each reduced config on the card and on the CPU from
+    the same state and batch; per config the largest |card - CPU| of the
+    loss, grad_norm, m and the params, each over its scale."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.data.tokens import DataConfig, batch_at
+    from repro_torch.models import ModelSettings
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.step import build_train_step, init_train_state
+
+    st = ModelSettings(q_chunk=32, kv_chunk=64, ce_chunk=64, remat="none",
+                       compute_dtype=torch.float32)
+    opt = OptConfig(lr=1e-3, warmup_steps=20, total_steps=100)
+    rows = {}
+    for name in sorted(ARCHS):
+        cfg = reduced(ARCHS[name])
+        state = init_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+        batch = {k: torch.from_numpy(v) for k, v in batch_at(
+            DataConfig(vocab=cfg.vocab, batch=2, seq=32, seed=1), 0).items()}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.randn((2, cfg.enc_frames, cfg.d_model),
+                                          generator=torch.Generator().manual_seed(2))
+        card_state = tree_map(lambda a: a.to("cuda"), state)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)   # tiny ops: a thread pool costs 10-100x here
+        try:
+            want, wmet = build_train_step(cfg, "cpu", settings=st, opt=opt)(state, batch)
+        finally:
+            torch.set_num_threads(threads)
+        got, gmet = build_train_step(cfg, "cuda", settings=st, opt=opt)(card_state, batch)
+        lr = wmet["lr"].item()
+        worst = {}
+        for k in ("loss", "grad_norm"):
+            a, b = gmet[k].item(), wmet[k].item()
+            check(gmet[k].device.type == "cuda" and abs(a - b) <= TRAIN_RTOL * abs(b),
+                  f"train_path: {name} {k} card {a} CPU {b}")
+            worst[k] = abs(a - b) / abs(b)
+        g_cpu = dict(tree_leaves(want["m"]))       # (1 - b1) g
+        worst["m"] = worst["params"] = 0.0
+        for path, m in tree_leaves(got["m"]):
+            what = f"train_path: {name} {'/'.join(path)}"
+            gm = g_cpu[path]
+            scale = gm.abs().max().item()
+            check(m.device.type == "cuda", f"{what} not on the card")
+            dm = (m.cpu() - gm).abs().max().item()
+            check(dm <= TRAIN_M_SCALE * scale, f"{what}: m card vs CPU {dm} at scale {scale}")
+            worst["m"] = max(worst["m"], dm / max(scale, 1e-30))
+            p, wp = dict(tree_leaves(got["params"]))[path].cpu(), dict(
+                tree_leaves(want["params"]))[path]
+            pscale = wp.abs().max().item()
+            diff = (p - wp).abs()
+            moved = (2 * TRAIN_M_SCALE * scale / (gm.abs() + (1 - opt.b1) * opt.eps)).clamp(max=2)
+            check(bool((diff <= lr * moved + TRAIN_P_SCALE * pscale).all()),
+                  f"{what}: params card vs CPU {diff.max().item()} (lr {lr}, scale {pscale})")
+            worst["params"] = max(worst["params"], diff.max().item() / max(pscale, 1e-30))
+        rows[name] = worst
+    return rows
+
+
+def phase_train(torch, sides: list[dict]) -> dict:
+    """Training on the card: the CLI at full width, the reduced configs card
+    against CPU, and a kill and resume through the CLI."""
+    import math
+
+    from repro_torch.ckpt import latest_step
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import costs
+    from repro_torch.models.common import tree_leaves
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "train_path: TF32 matmuls are on; the float32 comparisons need them off")
+    counted, launched = _launch_counter("train_path", sides)
+    marks, t_mark = {}, time.perf_counter()
+
+    def mark(name: str) -> None:
+        nonlocal t_mark
+        now = time.perf_counter()
+        marks[name] = now - t_mark
+        t_mark = now
+
+    seen = {"ms": [], "losses": [], "cfg": None}
+    build = ltrain.build_train_step
+
+    def timed_build(cfg, device, **kw):
+        """The driver's step, each call synchronized and timed."""
+        step = build(cfg, device, **kw)
+        seen["cfg"] = cfg
+
+        def timed(state, batch):
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            seen["ms"].append((time.perf_counter() - t0) * 1e3)
+            seen["state"], metrics = out
+            seen["losses"].append(metrics["loss"].item())
+            return out
+        return timed
+
+    def run_main(argv):
+        """``ltrain.main(argv)`` with its steps timed (``seen``), its signal
+        handlers put back after and its lines captured: (its value or its
+        SystemExit code, lines)."""
+        kept = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+        seen["ms"], seen["losses"] = [], []
+        out = io.StringIO()
+        ltrain.build_train_step = timed_build
+        try:
+            with contextlib.redirect_stdout(out):
+                value = ltrain.main(list(argv))
+        except SystemExit as e:
+            value = e.code
+        finally:
+            ltrain.build_train_step = build
+            for s, h in kept.items():
+                signal.signal(s, h)
+        return value, out.getvalue().splitlines()
+
+    torch.cuda.reset_peak_memory_stats()
+    (value, lines), cli_s, _ = counted({}, "the CLI", lambda: run_main(TRAIN_CLI))
+    peak = torch.cuda.max_memory_allocated()
+    mark("cli")
+    cfg, state, cli_losses, cli_ms = seen["cfg"], seen["state"], seen["losses"], seen["ms"]
+    check(cfg.d_model == 576 and cfg.n_layers == 30 and cfg.vocab == 49152,
+          f"train_path: not smollm-135m's full width: {cfg}")
+    check(len(cli_ms) == TRAIN_STEPS and all(math.isfinite(x) for x in cli_losses),
+          f"train_path: losses {cli_losses}")
+    first, last = value
+    check(lines[0].startswith("step     0 loss ") and lines[-1].startswith(
+        f"done: loss {first:.4f} -> {last:.4f} over {TRAIN_STEPS} steps"),
+        f"train_path: CLI printed {lines}")
+    leaves = list(tree_leaves(state))
+    check(all(a.device.type == "cuda" for _, a in leaves), "train_path: state not on the card")
+    check(all(a.dtype == torch.float32 for p, a in leaves if p[0] != "step")
+          and state["step"].dtype == torch.int32 and int(state["step"]) == TRAIN_STEPS,
+          "train_path: state leaves not float32 (step int32)")
+    n_params = sum(a.numel() for _, a in tree_leaves(state["params"]))
+    warm_ms = statistics.median(cli_ms[TRAIN_COLD:])
+    tokens = TRAIN_B * TRAIN_S
+    flops = costs.model_flops(cfg, ShapeConfig("train_cli", TRAIN_S, TRAIN_B, "train"))
+    # AdamW reads p, m, v and g and writes p, m and v: 7 float32 passes
+    adamw_bytes = 7 * 4 * n_params
+    flops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    bytes_ms = adamw_bytes / HBM_BYTES_PER_S * 1e3
+
+    t0 = time.perf_counter()
+    small = counted({}, "card vs CPU", lambda: _train_card_vs_cpu(torch))[0]
+    small_s = time.perf_counter() - t0
+    mark("card_vs_cpu")
+
+    # kill at step 6, resume from the step-5 checkpoint, against a run
+    # that was not interrupted
+    base = os.path.join(ROOT, "build", "chip_smoke", "train")
+    shutil.rmtree(base, ignore_errors=True)
+    ck, full = os.path.join(base, "ck"), os.path.join(base, "full")
+    code, kill_lines = counted({}, "the killed run", lambda: run_main(
+        TRAIN_KILL + ("--ckpt-dir", ck, "--fail-at-step", "6")))[0]
+    check(code == 17 and latest_step(ck) == 5 and "[fault-injection] hard exit at step 6"
+          in kill_lines, f"train_path: killed run exited {code} at {latest_step(ck)}")
+    _, resume_lines = counted({}, "the resumed run", lambda: run_main(
+        TRAIN_KILL + ("--ckpt-dir", ck)))[0]
+    resumed = seen["losses"]
+    check("[resume] from step 5" in resume_lines and len(resumed) == 7,
+          f"train_path: resumed run printed {resume_lines}, {len(resumed)} steps")
+    counted({}, "the uninterrupted run", lambda: run_main(TRAIN_KILL + ("--ckpt-dir", full)))
+    whole = seen["losses"]
+    resume_diff = max(abs(a - b) / abs(b) for a, b in zip(resumed, whole[5:]))
+    check(len(whole) == 12 and resume_diff <= TRAIN_RESUME_RTOL,
+          f"train_path: resumed losses {resumed} against {whole[5:]}")
+    shutil.rmtree(base, ignore_errors=True)
+    mark("kill_resume")
+    return {"arch": TRAIN_ARCH, "cli": list(TRAIN_CLI), "cli_s": cli_s, "cli_lines": lines,
+            "n_params": n_params, "losses": cli_losses, "first_last": list(value),
+            "ms_per_step": {"all": cli_ms, "warm_median": warm_ms},
+            "tokens_per_s": tokens / (warm_ms / 1e3), "peak_mem_bytes": peak,
+            "bound_ms_per_step": max(flops_ms, bytes_ms),
+            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+            "flops": flops, "flops_ms": flops_ms, "adamw_bytes": adamw_bytes,
+            "bytes_ms": bytes_ms,
+            "card_vs_cpu": {"rtol": TRAIN_RTOL, "m_atol": f"{TRAIN_M_SCALE} x max|cpu|",
+                            "params": f"lr min(2, {2 * TRAIN_M_SCALE} max|m| / (|m| + 0.1 "
+                                      f"eps)) + {TRAIN_P_SCALE} x max|cpu|",
+                            "max_rel_diff": small, "seconds": small_s},
+            "kill_resume": {"killed_at": 6, "resumed_from": 5, "resumed_steps": len(resumed),
+                            "max_rel_diff_vs_uninterrupted": resume_diff,
+                            "rtol": TRAIN_RESUME_RTOL},
+            "stages_s": marks, **launched}
+
+
 def _max_abs_diff(got, want) -> float:
     if isinstance(got, tuple):
         return max(_max_abs_diff(a, b) for a, b in zip(got, want))
@@ -2975,6 +3215,9 @@ def main() -> int:
         t0 = time.perf_counter()
         llm_path = phase_llm(torch, sides)
         emit({"phase": "llm_path", "seconds": time.perf_counter() - t0, **llm_path})
+        t0 = time.perf_counter()
+        train_path = phase_train(torch, sides)
+        emit({"phase": "train_path", "seconds": time.perf_counter() - t0, **train_path})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's launches on its own path

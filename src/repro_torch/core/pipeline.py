@@ -45,10 +45,10 @@ from repro_torch.obs import trace
 
 from . import blocks as blk
 from . import lossless, metrics
-from .schemes import (Scheme, check_device, get_scheme, resolved_device,
+from .schemes import (DEVICES, Scheme, check_device, get_scheme, resolved_device,
                       torch_device)
 
-__all__ = ["CODEC_FORMAT", "DTYPES", "STAGE_SECONDS", "CompressionSpec",
+__all__ = ["CODEC_FORMAT", "DTYPES", "DEVICES", "STAGE_SECONDS", "CompressionSpec",
            "CompressedField", "Pipeline"]
 
 #: version of the per-chunk byte layout, as in the reference

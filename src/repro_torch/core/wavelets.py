@@ -33,6 +33,8 @@ __all__ = [
     "WAVELETS",
     "max_levels",
     "default_levels",
+    "forward1d",
+    "inverse1d",
     "forward3d",
     "inverse3d",
     "detail_mask",
@@ -178,6 +180,16 @@ def _step(x: torch.Tensor, axis: int, kind: str, inverse: bool) -> torch.Tensor:
     x = torch.movedim(x, axis, -1)
     x = (_inv_step_last if inverse else _fwd_step_last)(x, kind)
     return torch.movedim(x, -1, axis)
+
+
+def forward1d(x: torch.Tensor, kind: str = "w3ai", axis: int = -1) -> torch.Tensor:
+    """One lifting step along ``axis``: ``[s | d]`` halves of that axis."""
+    return _step(x, axis, kind, inverse=False)
+
+
+def inverse1d(x: torch.Tensor, kind: str = "w3ai", axis: int = -1) -> torch.Tensor:
+    """Inverse of :func:`forward1d`."""
+    return _step(x, axis, kind, inverse=True)
 
 
 # ---------------------------------------------------------------------------

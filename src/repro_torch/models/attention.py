@@ -1,23 +1,31 @@
-"""GQA attention, forward only: chunked streaming-softmax (flash-style)
-(port of ``repro.models.attention``).
+"""GQA attention: chunked streaming-softmax (flash-style) with a hand-written
+backward (port of ``repro.models.attention``).
 
-Plain torch ops in the reference's chunk structure: an outer loop over
-query chunks, an inner loop over KV chunks carrying the running (max,
+Plain torch ops in the reference's chunk structure.  Forward: an outer loop
+over query chunks, an inner loop over KV chunks carrying the running (max,
 denominator, accumulator), so no (S, S) score tensor is materialized.
+
+Backward (the reference's custom VJP): a ``torch.autograd.Function`` whose
+forward runs the chunk loops without taping them and saves only (q, k, v,
+out, logsumexp); its backward recomputes each score block from the saved
+logsumexp, chunk by chunk (the FlashAttention recipe).  Autograd through the
+loops would keep every probability block alive for the backward.
 
 Causal modes:
 * ``impl="masked"``      — every q-chunk scans all kv chunks;
-* ``impl="triangular"``  — q-chunk i scans only kv chunks [0..i];
+* ``impl="triangular"``  — q-chunk i scans only kv chunks [0..i] forward;
+                           the backward scans all of them under the mask,
+                           as the reference's does;
 * ``impl="cp"``          — all q chunks at once, one loop over kv chunks
                            (the reference's context-parallel form, here on
                            one device).
 
-The backward (the reference's custom VJP) and the mesh shardings are not
-ported yet.
+The mesh shardings are not ported yet (ROADMAP item 10b-ii).
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .common import einsum, rmsnorm, rope
 
@@ -100,15 +108,20 @@ def _fwd_cp(qg, kg, vg, *, causal, qc, kc, q_offset, scale):
     return out, lse                                          # lse (B,nq,Hkv,G,qc)
 
 
+def _chunks(q, k, q_chunk, kv_chunk):
+    """(qc, kc, nq, nk, G, scale) of one call."""
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qc = _divisor_chunk(q_chunk, Sq)
+    kc = _divisor_chunk(kv_chunk, Skv)
+    return qc, kc, Sq // qc, Skv // kc, Hq // Hkv, hd ** -0.5
+
+
 def _flash_fwd_impl(q, k, v, causal, q_chunk, kv_chunk, q_offset, impl):
     """(out (B,Sq,Hq,hd) in q's dtype, lse (B,nq,Hkv,G,qc) f32)."""
     B, Sq, Hq, hd = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
-    G = Hq // Hkv
-    qc = _divisor_chunk(q_chunk, Sq)
-    kc = _divisor_chunk(kv_chunk, Skv)
-    nq, nk = Sq // qc, Skv // kc
-    scale = hd ** -0.5
+    Hkv = k.shape[2]
+    qc, kc, nq, nk, G, scale = _chunks(q, k, q_chunk, kv_chunk)
     qg = q.reshape(B, nq, qc, Hkv, G, hd)
     kg = k.reshape(B, nk, kc, Hkv, hd)
     vg = v.reshape(B, nk, kc, Hkv, hd)
@@ -131,16 +144,111 @@ def _flash_fwd_impl(q, k, v, causal, q_chunk, kv_chunk, q_offset, impl):
     return out.reshape(B, Sq, Hq, hd).to(q.dtype), lse
 
 
+def _bwd_cp(q, k, v, out, lse, dout, *, causal, qc, kc, q_offset, scale):
+    """All q chunks at once, one loop over kv chunks."""
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    nq, nk = Sq // qc, Skv // kc
+    qg = q.reshape(B, nq, qc, Hkv, G, hd)
+    dog = dout.reshape(B, nq, qc, Hkv, G, hd)
+    kg = k.reshape(B, nk, kc, Hkv, hd)
+    vg = v.reshape(B, nk, kc, Hkv, hd)
+    Drow = (dout.float() * out.float()).sum(-1)
+    Drow = Drow.reshape(B, nq, qc, Hkv, G).permute(0, 1, 3, 4, 2)
+    dq = torch.zeros((B, nq, qc, Hkv, G, hd), dtype=torch.float32, device=q.device)
+    dk = torch.empty((B, nk, kc, Hkv, hd), dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    for ki in range(nk):
+        kblk, vblk = kg[:, ki], vg[:, ki]
+        s = torch.einsum("bnqhgd,bkhd->bnhgqk", qg, kblk).float() * scale
+        if causal:
+            s = _cp_mask(s, nq, qc, kc, ki, q_offset)
+        p = torch.exp(s - lse[..., None])
+        dv[:, ki] = torch.einsum("bnhgqk,bnqhgd->bkhd", p.to(dog.dtype), dog).float()
+        dp = torch.einsum("bnqhgd,bkhd->bnhgqk", dog, vblk).float()
+        ds = p * (dp - Drow[..., None])
+        dq_c = torch.einsum("bnhgqk,bkhd->bnqhgd", ds.to(kblk.dtype), kblk)
+        dk[:, ki] = torch.einsum("bnhgqk,bnqhgd->bkhd", ds.to(qg.dtype), qg).float() * scale
+        dq = dq + dq_c.float() * scale
+    return (dq.reshape(B, Sq, Hq, hd).to(q.dtype), dk.reshape(B, Skv, Hkv, hd).to(k.dtype),
+            dv.reshape(B, Skv, Hkv, hd).to(v.dtype))
+
+
+def _flash_bwd(q, k, v, out, lse, dout, causal, q_chunk, kv_chunk, q_offset, impl):
+    """(dq, dk, dv) from the saved (q, k, v, out, lse): every score block
+    recomputed from ``lse``; each q chunk scans every kv chunk."""
+    qc, kc, nq, nk, G, scale = _chunks(q, k, q_chunk, kv_chunk)
+    kw = dict(causal=causal, qc=qc, kc=kc, q_offset=q_offset, scale=scale)
+    if impl == "cp":
+        return _bwd_cp(q, k, v, out, lse, dout, **kw)
+    B, Sq, Hq, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, nq, qc, Hkv, G, hd)
+    kg = k.reshape(B, nk, kc, Hkv, hd)
+    vg = v.reshape(B, nk, kc, Hkv, hd)
+    dog = dout.reshape(B, nq, qc, Hkv, G, hd)
+    # D_i = rowsum(dout * out) per query position
+    Drow = (dout.float() * out.float()).sum(-1)
+    Drow = Drow.reshape(B, nq, qc, Hkv, G).permute(0, 1, 3, 4, 2)  # (B,nq,Hkv,G,qc)
+    dk = torch.zeros((B, nk, kc, Hkv, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    dqs = []
+    for qi in range(nq):
+        qblk, doblk, lse_i, D_i = qg[:, qi], dog[:, qi], lse[:, qi], Drow[:, qi]
+        dq_i = torch.zeros((B, qc, Hkv, G, hd), dtype=torch.float32, device=q.device)
+        for ki in range(nk):
+            kblk, vblk = kg[:, ki], vg[:, ki]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kblk).float() * scale
+            if causal:
+                s = _mask_block(s, qi, ki, qc, kc, q_offset)
+            p = torch.exp(s - lse_i[..., None])                    # (B,Hkv,G,qc,kc)
+            dv_j = torch.einsum("bhgqk,bqhgd->bkhd", p.to(doblk.dtype), doblk)
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", doblk, vblk).float()
+            ds = p * (dp - D_i[..., None])
+            dq_c = torch.einsum("bhgqk,bkhd->bqhgd", ds.to(kblk.dtype), kblk)
+            dk_j = torch.einsum("bhgqk,bqhgd->bkhd", ds.to(qblk.dtype), qblk)
+            dq_i = dq_i + dq_c.float() * scale
+            dk[:, ki] += dk_j.float() * scale
+            dv[:, ki] += dv_j.float()
+        dqs.append(dq_i)
+    dq = torch.stack(dqs, 1).reshape(B, Sq, Hq, hd)
+    return (dq.to(q.dtype), dk.reshape(B, Skv, Hkv, hd).to(k.dtype),
+            dv.reshape(B, Skv, Hkv, hd).to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with the reference's custom VJP: the forward's chunk
+    loops are not taped, the backward recomputes from (q, k, v, out, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_chunk, kv_chunk, q_offset, impl):
+        out, lse = _flash_fwd_impl(q, k, v, causal, q_chunk, kv_chunk, q_offset, impl)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.settings = (causal, q_chunk, kv_chunk, q_offset, impl)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout.contiguous(), *ctx.settings)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool, q_chunk: int = 256,
                     kv_chunk: int = 512, impl: str = "masked",
                     q_offset: int = 0, shard_axes=None):
     """q (B,Sq,Hq,hd); k,v (B,Skv,Hkv,hd); Hq = Hkv*G -> (B,Sq,Hq,hd).
 
-    ``shard_axes`` (the reference's context-parallel mesh axes) must be
-    ``None``: one device computes every chunk."""
+    When a grad is needed it runs through the hand-written backward
+    (:class:`_Flash`).  ``shard_axes`` (the reference's context-parallel
+    mesh axes) must be ``None``: one device computes every chunk."""
     if shard_axes is not None:
-        raise NotImplementedError("sharded flash attention arrives with the "
-                                  "training slice (ROADMAP item 10b)")
+        raise NotImplementedError("sharded flash attention needs the mesh of ROADMAP "
+                                  "item 10b-ii")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _Flash.apply(q, k, v, causal, q_chunk, kv_chunk, q_offset, impl)
     out, _ = _flash_fwd_impl(q, k, v, causal, q_chunk, kv_chunk, q_offset, impl)
     return out
 
@@ -173,12 +281,12 @@ def attention(x, p, cfg, *, causal=True, impl="masked", q_chunk=256,
     ``attn_shard="cp"`` computes with the context-parallel impl, as the
     reference does on any mesh.  ``"replicate"`` and ``"heads"`` place q/k/v
     on a mesh's "model" axis; with ``n_model > 1`` they raise, since the
-    port has no mesh yet (ROADMAP item 10b).  ``batch_axes`` names mesh axes
+    port has no mesh yet (ROADMAP item 10b-ii).  ``batch_axes`` names mesh axes
     and is unused on one device."""
     if attn_shard in ("replicate", "heads") and n_model > 1:
         raise NotImplementedError(
             f"attn_shard={attn_shard!r} over a {n_model}-way model axis needs the "
-            "mesh shardings of the training slice (ROADMAP item 10b)")
+            "mesh shardings of ROADMAP item 10b-ii")
     B, S, D = x.shape
     use_rope = cfg.family != "encdec"
     positions = torch.arange(S, device=x.device)[None, :]

@@ -1,10 +1,12 @@
 """Model composition: layer stacks, LM loss, prefill and decode paths
-(port of ``repro.models.transformer``, forward only).
+(port of ``repro.models.transformer``).
 
 One code path per *family* (dense/vlm, moe, ssm, hybrid, encdec), all built
 from the same primitives.  Parameters are nested dicts of stacked leaves
 (leading layer/period dim), key for key the reference's tree; the layer
-scan is a Python loop over that leading dimension.
+scan is a Python loop over that leading dimension.  When a grad is needed,
+``remat`` checkpoints each layer as the reference's ``jax.checkpoint``
+policies do (:func:`_remat`).
 
 Serving updates the decode cache in place: ``decode_step`` writes each
 layer's new KV row and recurrent state into the cache's tensors and
@@ -14,10 +16,13 @@ Each cache leaf keeps its dtype.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.core.schemes import torch_device
@@ -38,7 +43,7 @@ class ModelSettings:
     q_chunk: int = 256
     kv_chunk: int = 512
     ce_chunk: int = 1024
-    remat: str = "full"             # none | dots | full (no effect in a forward pass)
+    remat: str = "full"             # none | dots | full (only where a grad is needed)
     compute_dtype: Any = torch.bfloat16
     rwkv_chunk: int = 0             # 0 = sequential loop; >0 = chunked WKV
     attn_shard: str = "auto"        # auto | replicate | heads | cp
@@ -255,17 +260,26 @@ def _rwkv_body(x, bp, cfg, st):
 
 def _hybrid_period_body(x, bp, cfg, st):
     """One jamba period: attn_period sublayers (mamba x (p-1), attn x 1 at
-    ``attn_period // 2``), the FFN MoE where ``i % moe_period == 1``."""
+    ``attn_period // 2``), the FFN MoE where ``i % moe_period == 1``.  With
+    remat, each mamba mixer is also checkpointed on its own, as the
+    reference does: its time loop keeps every step's values for the
+    backward otherwise."""
     P_at = cfg.attn_period
     attn_pos = P_at // 2
     aux_acc = _zero_aux(x.device)
     mi = di = oi = 0
+
+    def mamba_fn(xin, lp):
+        return ssm.mamba_mix(xin, lp, cfg)[0]
+
+    if st.remat != "none" and torch.is_grad_enabled():
+        mamba_fn = functools.partial(checkpoint, mamba_fn, use_reentrant=False)
     for i in range(P_at):
         if i == attn_pos:
             h = _attention(rmsnorm(x, bp["attn_ln"], cfg.norm_eps), bp["attn"], cfg, st)
         else:
-            h = ssm.mamba_mix(rmsnorm(x, bp["mamba_ln"][mi], cfg.norm_eps),
-                              _layer(bp["mamba"], mi), cfg)[0]
+            h = mamba_fn(rmsnorm(x, bp["mamba_ln"][mi], cfg.norm_eps),
+                         _layer(bp["mamba"], mi))
             mi += 1
         x = x + h
         if i % cfg.moe_period == 1:
@@ -308,9 +322,35 @@ def _dec_body(x, enc_out, bp, cfg, st):
     return x + y, _zero_aux(x.device)
 
 
-def _scan_blocks(x, blocks, body):
-    """Run ``body`` over the stacked layers; the aux values are averaged
-    over layers."""
+#: the 2-D products that ``remat="dots"`` saves, the reading of JAX's
+#: ``checkpoint_dots_with_no_batch_dims`` in aten ops; batched ones recompute
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(body, remat: str):
+    """``body`` checkpointed per layer: ``"full"`` saves nothing of it,
+    ``"dots"`` its 2-D products; ``"none"``, or no grad needed, runs it as
+    it is."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return body
+    if remat == "full":
+        return functools.partial(checkpoint, body, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, body, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"unknown remat {remat!r}")
+
+
+def _scan_blocks(x, blocks, body, st: ModelSettings):
+    """Run ``body`` over the stacked layers, each checkpointed as
+    ``st.remat`` says; the aux values are averaged over layers."""
+    body = _remat(body, st.remat)
     auxs = []
     for i in range(_n_stacked(blocks)):
         x, aux = body(x, _layer(blocks, i))
@@ -333,18 +373,18 @@ def forward_hidden(params, tokens, cfg, st: ModelSettings, enc_inputs=None):
         e = enc_inputs.to(cdt) + sinusoidal_positions(
             enc_inputs.shape[1], cfg.d_model, device=dev).to(cdt)
         e, _ = _scan_blocks(e, _cast_blocks(params["blocks"]["enc"], cdt),
-                            lambda a, bp: _enc_body(a, bp, cfg, st))
+                            lambda a, bp: _enc_body(a, bp, cfg, st), st)
         enc_out = rmsnorm(e, params["blocks"]["enc_norm"].to(cdt), cfg.norm_eps)
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model, device=dev).to(cdt)
         h, aux = _scan_blocks(x, _cast_blocks(params["blocks"]["dec"], cdt),
-                              lambda a, bp: _dec_body(a, enc_out, bp, cfg, st))
+                              lambda a, bp: _dec_body(a, enc_out, bp, cfg, st), st)
     else:
         body = {
             "dense": _decoder_body, "vlm": _decoder_body, "moe": _decoder_body,
             "ssm": _rwkv_body, "hybrid": _hybrid_period_body,
         }[fam]
         h, aux = _scan_blocks(x, _cast_blocks(params["blocks"], cdt),
-                              lambda a, bp: body(a, bp, cfg, st))
+                              lambda a, bp: body(a, bp, cfg, st), st)
     return rmsnorm(h, params["final_norm"].to(cdt), cfg.norm_eps), aux
 
 
@@ -370,9 +410,9 @@ def _head(params, cfg, dtype):
 
 
 def lm_loss(params, batch, cfg, st: ModelSettings = ModelSettings()):
-    """batch: dict(tokens (B,S), labels (B,S) [, frames (B,F,D)]).  The
-    forward value only: (loss, {"ce", "load_balance", "router_z",
-    "drop_fraction"})."""
+    """batch: dict(tokens (B,S), labels (B,S) [, frames (B,F,D)]) ->
+    (loss, {"ce", "load_balance", "router_z", "drop_fraction"}), 0-d
+    tensors; differentiable in the parameters that require a grad."""
     h, aux = forward_hidden(params, batch["tokens"], cfg, st,
                             enc_inputs=batch.get("frames"))
     ce = _chunked_ce(h, batch["labels"], _head(params, cfg, st.compute_dtype),
@@ -544,13 +584,13 @@ def prefill(params, tokens, cfg, st: ModelSettings = ModelSettings(),
 class _ParamTree(nn.Module):
     """A nested dict of tensors as submodules and parameters, key for key."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, trainable: bool = False):
         super().__init__()
         for k, v in tree.items():
             if isinstance(v, dict):
-                self.add_module(k, _ParamTree(v))
+                self.add_module(k, _ParamTree(v, trainable))
             else:
-                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(k, nn.Parameter(v, requires_grad=trainable))
 
     def tree(self) -> dict:
         out = {k: m.tree() for k, m in self.named_children()}
@@ -560,17 +600,20 @@ class _ParamTree(nn.Module):
 
 class LanguageModel(nn.Module):
     """The parameter tree of ``cfg`` as an ``nn.Module`` (``state_dict`` keys
-    are the tree's paths joined by dots), over the functions above."""
+    are the tree's paths joined by dots), over the functions above.  The
+    parameters require a grad only with ``trainable=True``: serving runs
+    without one."""
 
     def __init__(self, cfg, settings: ModelSettings = ModelSettings(),
                  device=DEFAULT_DEVICE, generator: torch.Generator | None = None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, trainable: bool = False):
         super().__init__()
         dev = torch_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         self.cfg, self.settings = cfg, settings
-        self.params = _ParamTree(init_params(cfg, generator, device=dev, dtype=dtype))
+        self.params = _ParamTree(init_params(cfg, generator, device=dev, dtype=dtype),
+                                 trainable)
 
     def tree(self) -> dict:
         """The parameters as the nested dict the functions take."""

@@ -8,7 +8,9 @@ The parameters and the cache must already lie on ``device``; tokens and
 frames are moved there.
 ``donate_cache=True`` updates the caller's cache in place, as the
 reference's donated buffers are; ``False`` decodes into a clone and leaves
-the caller's cache as it was.
+the caller's cache as it was.  The compressed-field analogue,
+:class:`~repro_torch.serve.region.FieldRegionServer`, is re-exported here
+as the reference re-exports it.
 """
 from __future__ import annotations
 
@@ -17,7 +19,9 @@ import torch
 from repro_torch.core.schemes import torch_device
 from repro_torch.models import ModelSettings, decode_step, prefill
 
-__all__ = ["build_decode_step", "build_prefill_step"]
+from .region import FieldRegionServer  # noqa: F401  (the reference's re-export)
+
+__all__ = ["build_decode_step", "build_prefill_step", "FieldRegionServer"]
 
 
 def build_decode_step(cfg, device, *, settings: ModelSettings = ModelSettings(),

@@ -49,7 +49,10 @@ NEW_MODULES = ("repro_torch.obs", "repro_torch.obs.registry", "repro_torch.obs.c
                "repro_torch.models.attention", "repro_torch.models.moe",
                "repro_torch.models.ssm", "repro_torch.models.transformer",
                "repro_torch.models.registry", "repro_torch.models.convert",
-               "repro_torch.serve.step", "repro_torch.launch.serve")
+               "repro_torch.serve.step", "repro_torch.launch.serve",
+               "repro_torch.kernels.ref", "repro_torch.data", "repro_torch.data.tokens",
+               "repro_torch.models.costs", "repro_torch.train", "repro_torch.train.optim",
+               "repro_torch.train.step", "repro_torch.launch.train")
 
 
 def test_new_modules_are_in_the_import_check():
