@@ -304,10 +304,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  6 N tokens flops (``models.costs.model_flops``) at 67
                  TFLOP/s, and AdamW's bytes (p, m, v read and written, g
                  read: 7 float32 passes over the parameters) at 3.35 TB/s.
-                 Then each of the ten ``reduced`` configs takes one train
-                 step on the card and on the CPU from the same state and
-                 batch: loss and grad_norm within rtol 1e-5, m and the new
-                 params within the tolerances at ``TRAIN_RTOL`` below.  Then
+                 The CLI's first step is taken again on the CPU from a host
+                 copy of the same state and batch and held to the card's
+                 at the tolerances at ``TRAIN_RTOL`` below.  Then
+                 smollm-135m at full width trains at train_4k's S = 4096
+                 (B cut to 4) with ``ModelSettings()``'s defaults (bf16,
+                 remat "full", q 256 / kv 512): one step to warm up and
+                 one timed, both synchronized; ms per step, tokens/s over the
+                 timed steps, peak memory, and the bounds (the useful
+                 flops, ``models.costs.detailed_flops`` without remat and
+                 with the causal half of the scores, at 989 TFLOP/s bf16;
+                 AdamW's bytes).  Then each of the ten ``reduced`` configs
+                 takes one train step (S 32 in q 8 / kv 16 chunks, so the
+                 flash backward sums over blocks) on the card and on the
+                 CPU from the same state and batch: loss and grad_norm
+                 within rtol 1e-5, m and the new params within the
+                 tolerances at ``TRAIN_RTOL`` below.  Then
                  the reduced smollm-135m through ``main`` with
                  ``--fail-at-step 6 --ckpt-every 5``: SystemExit(17) and a
                  step-5 checkpoint; the rerun prints ``[resume] from step
@@ -2773,15 +2785,27 @@ def phase_llm(torch, sides: list[dict]) -> dict:
 
 
 # train_path: training on one card.  The CLI run is the reference driver's
-# (B 8, S 64, float32, no remat) at smollm-135m's full width, 12 steps; the
-# ten reduced configs take one step on the card and on the CPU; the reduced
-# smollm is killed at step 6 and resumed from its step-5 checkpoint.
+# (B 8, S 64, float32, no remat) at smollm-135m's full width, 12 steps, its
+# first step held against the same step on the CPU; then smollm-135m trains
+# at train_4k's sequence length with ModelSettings' defaults; the ten reduced
+# configs take one step on the card and on the CPU; the reduced smollm is
+# killed at step 6 and resumed from its step-5 checkpoint.
 TRAIN_ARCH = "smollm-135m"
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_COLD = 8, 64, 12, 2   # the first 2 steps warm up
 TRAIN_CLI = ("--arch", TRAIN_ARCH, "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
              "--steps", str(TRAIN_STEPS), "--log-every", "4")
 TRAIN_KILL = ("--arch", TRAIN_ARCH, "--reduced", "--steps", "12", "--batch", "2", "--seq",
               "32", "--ckpt-every", "5", "--log-every", "4")
+# train_4k (S 4096, B 256; configs/base.py) cut to B 4, one step to warm up
+# and one timed (a step is host-bound, ~6-9 s at any B from 1 to 4, and the
+# script is at its 600 s budget): ModelSettings() defaults (masked, q 256 / kv 512, ce 1024,
+# remat "full", bf16 compute; params, m and v float32)
+TRAIN_LONG_B, TRAIN_LONG_S, TRAIN_LONG_COLD, TRAIN_LONG_STEPS = 4, 4096, 1, 1
+BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 dense, tensor cores
+# the reduced configs' step: S 32 in chunks of q 8 / kv 16 (4 x 2 blocks,
+# the diagonal ones part masked), so the flash backward sums dk and dv over
+# q chunks and dq over kv chunks
+TRAIN_SMALL_S, TRAIN_SMALL_Q, TRAIN_SMALL_KV, TRAIN_SMALL_CE = 32, 8, 16, 16
 # one step card against CPU, float32 (TF32 off), each against its scale (its
 # largest |CPU value|): loss and grad_norm rtol 1e-5; m = (1 - b1) g within
 # 1e-4 of the scale (tests/_torch_train.py's grad tolerance); each new
@@ -2796,6 +2820,40 @@ TRAIN_RTOL, TRAIN_M_SCALE, TRAIN_P_SCALE = 1e-5, 1e-4, 1e-6
 TRAIN_RESUME_RTOL = 1e-5
 
 
+def _check_step(name: str, opt, got, gmet, want, wmet) -> dict:
+    """Checks one train step's card result (``got``, ``gmet``) against the
+    CPU's (``want``, ``wmet``) from the same state and batch, at the
+    tolerances above; the largest |card - CPU| of the loss, grad_norm, m and
+    the params, each over its scale."""
+    from repro_torch.models.common import tree_leaves
+
+    lr = wmet["lr"].item()
+    worst = {}
+    for k in ("loss", "grad_norm"):
+        a, b = gmet[k].item(), wmet[k].item()
+        check(gmet[k].device.type == "cuda" and abs(a - b) <= TRAIN_RTOL * abs(b),
+              f"train_path: {name} {k} card {a} CPU {b}")
+        worst[k] = abs(a - b) / abs(b)
+    g_cpu = dict(tree_leaves(want["m"]))       # (1 - b1) g (got may be a host copy)
+    p_card, p_cpu = dict(tree_leaves(got["params"])), dict(tree_leaves(want["params"]))
+    worst["m"] = worst["params"] = 0.0
+    for path, m in tree_leaves(got["m"]):
+        what = f"train_path: {name} {'/'.join(path)}"
+        gm = g_cpu[path]
+        scale = gm.abs().max().item()
+        dm = (m.cpu() - gm).abs().max().item()
+        check(dm <= TRAIN_M_SCALE * scale, f"{what}: m card vs CPU {dm} at scale {scale}")
+        worst["m"] = max(worst["m"], dm / max(scale, 1e-30))
+        p, wp = p_card[path].cpu(), p_cpu[path]
+        pscale = wp.abs().max().item()
+        diff = (p - wp).abs()
+        moved = (2 * TRAIN_M_SCALE * scale / (gm.abs() + (1 - opt.b1) * opt.eps)).clamp(max=2)
+        check(bool((diff <= lr * moved + TRAIN_P_SCALE * pscale).all()),
+              f"{what}: params card vs CPU {diff.max().item()} (lr {lr}, scale {pscale})")
+        worst["params"] = max(worst["params"], diff.max().item() / max(pscale, 1e-30))
+    return worst
+
+
 def _train_card_vs_cpu(torch) -> dict:
     """One train step of each reduced config on the card and on the CPU from
     the same state and batch; per config the largest |card - CPU| of the
@@ -2807,15 +2865,15 @@ def _train_card_vs_cpu(torch) -> dict:
     from repro_torch.train.optim import OptConfig
     from repro_torch.train.step import build_train_step, init_train_state
 
-    st = ModelSettings(q_chunk=32, kv_chunk=64, ce_chunk=64, remat="none",
-                       compute_dtype=torch.float32)
+    st = ModelSettings(q_chunk=TRAIN_SMALL_Q, kv_chunk=TRAIN_SMALL_KV,
+                       ce_chunk=TRAIN_SMALL_CE, remat="none", compute_dtype=torch.float32)
     opt = OptConfig(lr=1e-3, warmup_steps=20, total_steps=100)
     rows = {}
     for name in sorted(ARCHS):
         cfg = reduced(ARCHS[name])
         state = init_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
         batch = {k: torch.from_numpy(v) for k, v in batch_at(
-            DataConfig(vocab=cfg.vocab, batch=2, seq=32, seed=1), 0).items()}
+            DataConfig(vocab=cfg.vocab, batch=2, seq=TRAIN_SMALL_S, seed=1), 0).items()}
         if cfg.family == "encdec":
             batch["frames"] = torch.randn((2, cfg.enc_frames, cfg.d_model),
                                           generator=torch.Generator().manual_seed(2))
@@ -2827,45 +2885,82 @@ def _train_card_vs_cpu(torch) -> dict:
         finally:
             torch.set_num_threads(threads)
         got, gmet = build_train_step(cfg, "cuda", settings=st, opt=opt)(card_state, batch)
-        lr = wmet["lr"].item()
-        worst = {}
-        for k in ("loss", "grad_norm"):
-            a, b = gmet[k].item(), wmet[k].item()
-            check(gmet[k].device.type == "cuda" and abs(a - b) <= TRAIN_RTOL * abs(b),
-                  f"train_path: {name} {k} card {a} CPU {b}")
-            worst[k] = abs(a - b) / abs(b)
-        g_cpu = dict(tree_leaves(want["m"]))       # (1 - b1) g
-        worst["m"] = worst["params"] = 0.0
-        for path, m in tree_leaves(got["m"]):
-            what = f"train_path: {name} {'/'.join(path)}"
-            gm = g_cpu[path]
-            scale = gm.abs().max().item()
-            check(m.device.type == "cuda", f"{what} not on the card")
-            dm = (m.cpu() - gm).abs().max().item()
-            check(dm <= TRAIN_M_SCALE * scale, f"{what}: m card vs CPU {dm} at scale {scale}")
-            worst["m"] = max(worst["m"], dm / max(scale, 1e-30))
-            p, wp = dict(tree_leaves(got["params"]))[path].cpu(), dict(
-                tree_leaves(want["params"]))[path]
-            pscale = wp.abs().max().item()
-            diff = (p - wp).abs()
-            moved = (2 * TRAIN_M_SCALE * scale / (gm.abs() + (1 - opt.b1) * opt.eps)).clamp(max=2)
-            check(bool((diff <= lr * moved + TRAIN_P_SCALE * pscale).all()),
-                  f"{what}: params card vs CPU {diff.max().item()} (lr {lr}, scale {pscale})")
-            worst["params"] = max(worst["params"], diff.max().item() / max(pscale, 1e-30))
-        rows[name] = worst
+        check(all(a.device.type == "cuda" for _, a in tree_leaves(got)),
+              f"train_path: {name} state not on the card")
+        rows[name] = _check_step(name, opt, got, gmet, want, wmet)
     return rows
 
 
+def _train_long(torch) -> dict:
+    """smollm-135m at full width and S 4096 with ModelSettings() defaults:
+    synchronized steps, tokens/s over the timed ones, peak memory and the
+    step's bounds."""
+    import math
+
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.data.tokens import DataConfig, batch_at
+    from repro_torch.models import ModelSettings, costs
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.step import build_train_step, init_train_state
+
+    cfg, st = ARCHS[TRAIN_ARCH], ModelSettings()
+    opt = OptConfig(lr=1e-3, warmup_steps=20, total_steps=100)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+    step = build_train_step(cfg, "cuda", settings=st, opt=opt)
+    data = DataConfig(vocab=cfg.vocab, batch=TRAIN_LONG_B, seq=TRAIN_LONG_S, seed=0)
+    ms, losses = [], []
+    for i in range(TRAIN_LONG_COLD + TRAIN_LONG_STEPS):
+        batch = {k: torch.from_numpy(v) for k, v in batch_at(data, i).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses), f"train_path: S 4096 losses {losses}")
+    leaves = list(tree_leaves(state))
+    check(all(a.device.type == "cuda" for _, a in leaves)
+          and all(a.dtype == torch.float32 for p, a in leaves if p[0] != "step"),
+          "train_path: S 4096 state not float32 on the card")
+    n_params = sum(a.numel() for _, a in tree_leaves(state["params"]))
+    del state
+    timed = ms[TRAIN_LONG_COLD:]
+    tokens = TRAIN_LONG_B * TRAIN_LONG_S
+    shape = ShapeConfig("train_4k_cut", TRAIN_LONG_S, TRAIN_LONG_B, "train")
+    # the work a step needs: 6 N tokens and the causal half of the score
+    # products, forward and backward, without remat's recompute
+    flops = costs.detailed_flops(cfg, shape, attn_impl="triangular", remat="none")["total"]
+    flops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    adamw_bytes = 7 * 4 * n_params
+    bytes_ms = adamw_bytes / HBM_BYTES_PER_S * 1e3
+    return {"batch": TRAIN_LONG_B, "seq": TRAIN_LONG_S,
+            "reduced": "train_4k's B 256 x S 4096 cut to B 4",
+            "settings": "ModelSettings() defaults: masked, q 256, kv 512, ce 1024, "
+                        "remat full, bf16 compute, float32 params/m/v",
+            "losses": losses, "ms_per_step": ms,
+            "tokens_per_s": tokens * len(timed) / (sum(timed) / 1e3),
+            "peak_mem_bytes": peak, "bound_ms_per_step": max(flops_ms, bytes_ms),
+            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
+            "flops": flops, "flops_ms": flops_ms, "adamw_bytes": adamw_bytes,
+            "bytes_ms": bytes_ms}
+
+
 def phase_train(torch, sides: list[dict]) -> dict:
-    """Training on the card: the CLI at full width, the reduced configs card
-    against CPU, and a kill and resume through the CLI."""
+    """Training on the card: the CLI at full width (its first step against
+    the CPU's), S 4096 at full width, the reduced configs card against CPU,
+    and a kill and resume through the CLI."""
     import math
 
     from repro_torch.ckpt import latest_step
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch import train as ltrain
     from repro_torch.models import costs
-    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.common import tree_leaves, tree_map
 
     check(not torch.backends.cuda.matmul.allow_tf32
           and torch.get_float32_matmul_precision() == "highest",
@@ -2879,21 +2974,28 @@ def phase_train(torch, sides: list[dict]) -> dict:
         marks[name] = now - t_mark
         t_mark = now
 
-    seen = {"ms": [], "losses": [], "cfg": None}
+    seen = {"ms": [], "losses": [], "cfg": None, "capture": False, "first": None}
     build = ltrain.build_train_step
 
     def timed_build(cfg, device, **kw):
-        """The driver's step, each call synchronized and timed."""
+        """The driver's step, each call synchronized and timed; with
+        ``seen["capture"]`` its first call's state and batch before, and its
+        state and metrics after, kept on the host (``seen["first"]``)."""
         step = build(cfg, device, **kw)
-        seen["cfg"] = cfg
+        seen["cfg"], seen["kw"] = cfg, kw
 
         def timed(state, batch):
+            keep = seen["capture"] and seen["first"] is None
+            if keep:
+                before = (tree_map(lambda a: a.cpu(), state), dict(batch))
             t0 = time.perf_counter()
             out = step(state, batch)
             torch.cuda.synchronize()
             seen["ms"].append((time.perf_counter() - t0) * 1e3)
             seen["state"], metrics = out
             seen["losses"].append(metrics["loss"].item())
+            if keep:   # before the next step writes over the donated state
+                seen["first"] = (*before, tree_map(lambda a: a.cpu(), out[0]), metrics)
             return out
         return timed
 
@@ -2917,7 +3019,9 @@ def phase_train(torch, sides: list[dict]) -> dict:
         return value, out.getvalue().splitlines()
 
     torch.cuda.reset_peak_memory_stats()
+    seen["capture"] = True
     (value, lines), cli_s, _ = counted({}, "the CLI", lambda: run_main(TRAIN_CLI))
+    seen["capture"] = False
     peak = torch.cuda.max_memory_allocated()
     mark("cli")
     cfg, state, cli_losses, cli_ms = seen["cfg"], seen["state"], seen["losses"], seen["ms"]
@@ -2942,6 +3046,19 @@ def phase_train(torch, sides: list[dict]) -> dict:
     adamw_bytes = 7 * 4 * n_params
     flops_ms = flops / FP32_FLOPS_PER_S * 1e3
     bytes_ms = adamw_bytes / HBM_BYTES_PER_S * 1e3
+    del state, leaves
+    seen.pop("state")
+
+    # the CLI's first step again on the CPU, from the same state and batch
+    state0, batch0, got, gmet = seen.pop("first")
+    want, wmet = build(cfg, "cpu", **seen["kw"])(state0, batch0)
+    full_vs_cpu = _check_step(f"{TRAIN_ARCH} full width", seen["kw"]["opt"], got, gmet,
+                              want, wmet)
+    del state0, batch0, got, want
+    mark("full_width_vs_cpu")
+
+    long = counted({}, "S 4096", lambda: _train_long(torch))[0]
+    mark("s4096")
 
     t0 = time.perf_counter()
     small = counted({}, "card vs CPU", lambda: _train_card_vs_cpu(torch))[0]
@@ -2977,10 +3094,14 @@ def phase_train(torch, sides: list[dict]) -> dict:
             "bound_by": "operations" if flops_ms >= bytes_ms else "bytes",
             "flops": flops, "flops_ms": flops_ms, "adamw_bytes": adamw_bytes,
             "bytes_ms": bytes_ms,
+            "full_width_vs_cpu": {"step": 0, "max_rel_diff": full_vs_cpu},
+            "s4096": long,
             "card_vs_cpu": {"rtol": TRAIN_RTOL, "m_atol": f"{TRAIN_M_SCALE} x max|cpu|",
                             "params": f"lr min(2, {2 * TRAIN_M_SCALE} max|m| / (|m| + 0.1 "
                                       f"eps)) + {TRAIN_P_SCALE} x max|cpu|",
-                            "max_rel_diff": small, "seconds": small_s},
+                            "seq": TRAIN_SMALL_S, "q_chunk": TRAIN_SMALL_Q,
+                            "kv_chunk": TRAIN_SMALL_KV, "max_rel_diff": small,
+                            "seconds": small_s},
             "kill_resume": {"killed_at": 6, "resumed_from": 5, "resumed_steps": len(resumed),
                             "max_rel_diff_vs_uninterrupted": resume_diff,
                             "rtol": TRAIN_RESUME_RTOL},

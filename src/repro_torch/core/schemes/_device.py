@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["DEVICES", "check_device", "torch_device", "resolved_device", "kernel_ops"]
+__all__ = ["DEVICES", "check_device", "torch_device", "resolved_device"]
 
 #: devices a spec may record (validated everywhere, as in the reference)
 DEVICES = ("host", "jax")
@@ -46,11 +46,3 @@ def resolved_device(device: torch.device, device_capable: bool) -> str:
     scheme has a kernel path and the data is on the card, else ``"host"``."""
     return "jax" if device_capable and device.type == "cuda" else "host"
 
-
-def kernel_ops():
-    """The kernel wrappers, :mod:`repro_torch.kernels.ops`.  The reference
-    returns ``None`` when Pallas is missing, to fall back; the port has no
-    fallback, so this is always the module."""
-    from repro_torch.kernels import ops
-
-    return ops

@@ -61,11 +61,15 @@ def build_train_step(cfg, device, *, settings: ModelSettings = ModelSettings(),
     the micro-batches' grads in float32, then scales by ``1/micro_batches``,
     as the reference's scan does.  ``donate=True`` writes the new params, m,
     v and step into the state's tensors (the reference's donated buffers);
-    ``False`` leaves the caller's state as it was.  ``param_dtype`` is the
-    reference's sharding knob and changes nothing on one device."""
+    ``False`` leaves the caller's state as it was.  ``param_dtype`` (the
+    reference's low-precision parameters under a mesh) is ROADMAP item
+    10b-ii: anything but ``None`` raises."""
     _no_grad_compress(grad_compress)
+    if param_dtype is not None:
+        raise NotImplementedError(
+            f"param_dtype={param_dtype!r}: parameters in another dtype than the "
+            "optimizer's come with the mesh, ROADMAP item 10b-ii")
     dev = torch_device(device)
-    del param_dtype
     settings = dataclasses.replace(settings, n_model=1, n_batch=1)
 
     def value_and_grad(params, batch):

@@ -22,6 +22,8 @@ GAPS = {
     **{(m, n): "the port has no fallback, by rule: a CUDA tensor launches the kernel or raises"
        for m in ("repro.core.schemes", "repro.core.schemes._device")
        for n in ("route", "resolve_ops", "DeviceFallbackWarning")},
+    ("repro.core.schemes._device", "kernel_ops"):
+        "the reference's fallback test (None without Pallas); the port has no fallback, by rule",
     ("repro.core.shuffle", "zero_low_bits"): "no caller in the reference; ported with one",
     # (its partner scatter_topk is not in the reference's __all__)
     ("repro.core.threshold", "topk_details"): "gradient compression, ROADMAP item 10c",

@@ -74,6 +74,27 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
         ttrain.main(["--device", "cuda", "--reduced", "--steps", "1"])
 
 
+def test_train_profile_runs_on_the_cpu(tmp_path, capsys):
+    """``repro_torch.launch.train_profile`` times each batch size and
+    profiles one step; on the CPU it sees no kernels, and it asks for the
+    card by default."""
+    from repro_torch.launch import train_profile
+
+    out = train_profile.main(["--device", "cpu", "--reduced", "--seq", "32",
+                              "--batches", "1,2", "--steps", "1", "--out", str(tmp_path)])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == json.loads(
+        json.dumps(out))
+    assert {b: len(ms) for b, ms in out["ms_per_step"].items()} == {1: 2, 2: 2}
+    prof = out["profile"]
+    assert prof["batch"] == 2 and prof["kernels"] == prof["launch_calls"] == 0
+    assert prof["device_s"] == prof["busy_share"] == 0.0
+    assert "aten::" in (tmp_path / "train_profile.txt").read_text()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="cuda"):
+            train_profile.main(["--reduced", "--seq", "32"])
+
+
 @contextlib.contextmanager
 def _signals_kept():
     """Both drivers install SIGTERM/SIGINT handlers; put the old ones back."""

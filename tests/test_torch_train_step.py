@@ -180,6 +180,15 @@ def test_grad_compress_names_its_roadmap_item():
         tstep.train_state_specs(cfg, grad_compress="topk")
 
 
+def test_param_dtype_names_its_roadmap_item():
+    """The step keeps float32 parameters: another ``param_dtype`` raises
+    instead of being ignored."""
+    cfg = tconfigs.reduced(tconfigs.ARCHS["smollm-135m"])
+    with pytest.raises(NotImplementedError, match="10b-ii"):
+        tstep.build_train_step(cfg, "cpu", param_dtype=torch.bfloat16)
+    assert callable(tstep.build_train_step(cfg, "cpu", param_dtype=None))
+
+
 def test_state_conversion_checks_its_form():
     before, *_ = _reference_step("smollm-135m", 1)
     state = state_from_reference(before, device="cpu")
