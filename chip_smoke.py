@@ -127,10 +127,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  StaticFileServer), each bit-equal to the MemoryStore read;
                  ``FieldReader`` boxes (one
                  block, an unaligned box of 8 chunks, a two-plane slab of 16
-                 chunks, the whole field) on a fresh 2 ms RangeStore each,
-                 cold then warm, bit-equal to the same slice, with
-                 ``chunks_decoded`` the box's chunks; slab and field again
-                 at prefetch 4 with the same bits, requests and bytes.  Each
+                 chunks, a quarter of the field, 32 chunks) on a fresh 2 ms
+                 RangeStore each, cold then warm, bit-equal to the same
+                 slice, with ``chunks_decoded`` the box's chunks; slab and
+                 quarter again at prefetch 4 with the same bits, requests
+                 and bytes.  Each
                  read's launches: one decode launch per chunk decoded (none
                  for szx chunks), none on a warm read.  Prints per container
                  and box the cold and warm ms, the reader's fetch and decode
@@ -267,7 +268,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  CLI's run and a warm second generation, which must give
                  the same tokens), tokens/s, the bytes bound per step
                  (every weight and the whole KV cache read once at 3.35
-                 TB/s), peak card memory, and one decode step captured in a
+                 TB/s), peak card memory, and one decode step (the serve
+                 builder's ``jit_for`` step on a 1x1 mesh) captured in a
                  CUDA graph and replayed (its device time without the
                  host's gaps, within the tolerance below of the eager
                  step; over the warm step's wall: the device's busy share).
@@ -294,7 +296,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``train_path`` training on one card (``repro_torch.train``,
                  ``data.tokens``, the flash backward, ``launch.train``), run
                  after llm_path, TF32 off (asserted): the CLI entry point
-                 ``repro_torch.launch.train.main`` at smollm-135m's full
+                 ``repro_torch.launch.train.main`` (its step the mesh
+                 builder's ``jit_for`` on a 1x1 mesh) at smollm-135m's full
                  width on the card, the reference driver's B = 8, S = 64,
                  float32, no remat, 12 steps from random weights (seed 0):
                  every loss finite, every state leaf on the card and float32
@@ -328,6 +331,38 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  embedding's backward sums with atomics on the card).  None
                  of the six kernels runs on this path: its launch counts
                  must stay 0 (zeroed just before each run).
+   ``mesh_path`` training on a mesh with a "pod" axis and top-k gradient
+                 compression with error feedback (``launch.mesh``,
+                 ``train.sharding``, ``train.grad_compress``), run after
+                 train_path: smollm-135m at full width, random weights
+                 (seed 0), the CLI's settings (B 8 x S 64, float32, TF32
+                 off), ``batch_at``'s data.  (a) One process, mesh
+                 (1, 1, 1) on ("pod", "data", "model"): from one state,
+                 3 dense steps (no ``grad_compress``: the normal branch)
+                 and 3 ``topk32`` steps (``pod_compressed_grads``, no
+                 exchange with one pod), each synchronized; ms per step,
+                 the top-k's share of a compressed step (CUDA events
+                 around each ``topk_compress`` and ``topk_decompress``
+                 call), and the bytes one pod would send a step: 4 N dense
+                 against the payload's 8 sum(nb k) (tiny leaves dense).  At
+                 the first compressed step (whose loss is the dense
+                 one's), in every leaf compressed: what is sent plus the
+                 residual is the grad, bit for bit (up to the sign of zero
+                 and the subnormals XLA flushes), and in every block the
+                 smallest kept |value| is at least the largest dropped one;
+                 ``topk_compress``/``topk_decompress`` of the embedding's
+                 corrected grad (28.3M values, 27 blocks) and of the
+                 smallest padded leaf's on the card equal the CPU's bit for
+                 bit.  (b) Two processes sharing the card, mesh (2, 1, 1)
+                 over gloo (``tcp://localhost``), ``topk32``, 2 steps, each
+                 pod on its 4 rows: after each step both hold the same
+                 params, m and v (int64 sums of their bits, plain and
+                 weighted by position) and the same loss; step 1's loss,
+                 the mean of the two half-batch means, within 1e-6
+                 relative of (a)'s dense step-1 loss.  Prints the
+                 processes' boot (spawn to their group) and ms per step.
+                 None of the six kernels runs on this path: the launch
+                 counts must stay 0.
    A kernel's launch count on a path is its wrapper's
    ``cz_kernel_calls_total{device="cuda"}`` series from repro_torch.obs,
    which the wrapper adds one to where its launch succeeded and nowhere
@@ -1148,11 +1183,13 @@ DECODE_KERNEL = {"wavelet": "wavelet3d_inverse", "zfpx": "zfpx_decode",
                  "lorenzo": "lorenzo_decode"}
 # boxes [lo, hi) of the 512^3 field: (a) one block, (b) an unaligned box of
 # 4x4x4 blocks in 8 chunks, (c) a two-plane slab across the middle, 16
-# chunks, (d) the whole field
+# chunks, (d) a quarter of the field, 32 chunks (the whole field, 128
+# chunks, took 36 s of cold reads over the four containers at prefetch 0 and
+# 4; read_field reads it whole through every store)
 REGION_BOXES = {"a_block": ((0, 0, 0), (32, 32, 32)),
                 "b_unaligned": ((37, 201, 390), (137, 301, 490)),
                 "c_slab": ((255, 0, 0), (257, 512, 512)),
-                "d_field": ((0, 0, 0), (512, 512, 512))}
+                "d_quarter": ((0, 0, 0), (128, 512, 512))}
 REGION_LATENCY = 0.002  # the RangeStore's per-request latency, s
 # the container also read whole through a FileStore and an HttpStore (the
 # store code is the same for every chunk scheme)
@@ -1285,7 +1322,7 @@ def phase_region(files: dict, sides: list[dict]) -> tuple[dict, dict]:
         for bname, (lo, hi) in REGION_BOXES.items():
             want = bits[tuple(slice(a, b) for a, b in zip(lo, hi))]
             runs = {}
-            for pf in (0, REGION_PREFETCH) if bname in ("c_slab", "d_field") else (0,):
+            for pf in (0, REGION_PREFETCH) if bname in ("c_slab", "d_quarter") else (0,):
                 st = stores.RangeStore(latency=REGION_LATENCY)
                 st.put(key, blob)
                 tag = f"{name} box {bname} prefetch {pf}"
@@ -2629,6 +2666,7 @@ def phase_llm(torch, sides: list[dict]) -> dict:
     from repro_torch.launch import serve as lserve
     from repro_torch.models import ModelSettings, prefill
     from repro_torch.models.common import tree_leaves
+    from repro_torch.serve.step import build_decode_step
 
     check(not torch.backends.cuda.matmul.allow_tf32
           and torch.get_float32_matmul_precision() == "highest",
@@ -2692,17 +2730,20 @@ def phase_llm(torch, sides: list[dict]) -> dict:
         torch.cuda.synchronize()
         mark("warm")
         # the same step's device work without the host between kernels: one
-        # decode step captured in a CUDA graph, replayed back to back
+        # decode step (the serve builder's jit_for on a 1x1 mesh) captured
+        # in a CUDA graph, replayed back to back
         cache, tok, pos = warm.cache, warm.tokens[:, -1:], P + new - 1
+        _, decode_for = build_decode_step(cfg, _mesh11(torch, "cuda"), settings=lserve.SETTINGS)
+        decode = decode_for(params, cache, tok)
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             for _ in range(2):
-                lserve.decode_step(params, cache, tok, pos, cfg, lserve.SETTINGS)
+                decode(params, cache, tok, pos)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            glogits, _ = lserve.decode_step(params, cache, tok, pos, cfg, lserve.SETTINGS)
+            glogits, _ = decode(params, cache, tok, pos)
         graph_ms = median_ms(graph.replay, LLM_GRAPH_REPLAYS)
         eager_logits, _ = lserve.decode_step(params, cache, tok, pos, cfg, lserve.SETTINGS)
         graph.replay()
@@ -2818,6 +2859,20 @@ TRAIN_RTOL, TRAIN_M_SCALE, TRAIN_P_SCALE = 1e-5, 1e-4, 1e-6
 # the resumed run's losses against an uninterrupted card run: the embedding's
 # backward sums with atomics on CUDA, so not bit for bit
 TRAIN_RESUME_RTOL = 1e-5
+# mesh_path: the pod mesh's axes, the compression, K steps of each kind in
+# (a), the steps of the two pods in (b), and (b)'s step-1 loss against (a)'s
+# dense one (the mean of two half-batch means against the batch's mean)
+MESH_AXES = ("pod", "data", "model")
+MESH_METHOD, MESH_RATIO = "topk32", 32
+MESH_STEPS, MESH_POD_STEPS = 3, 2
+MESH_LOSS_RTOL = 1e-6
+
+
+def _mesh11(torch, device: str):
+    """A 1x1 ("data", "model") mesh on ``device``, as the train CLI's."""
+    from repro_torch.launch.mesh import make_mesh
+
+    return make_mesh((1, 1), ("data", "model"), device=device)
 
 
 def _check_step(name: str, opt, got, gmet, want, wmet) -> dict:
@@ -2881,10 +2936,12 @@ def _train_card_vs_cpu(torch) -> dict:
         threads = torch.get_num_threads()
         torch.set_num_threads(1)   # tiny ops: a thread pool costs 10-100x here
         try:
-            want, wmet = build_train_step(cfg, "cpu", settings=st, opt=opt)(state, batch)
+            want, wmet = build_train_step(cfg, _mesh11(torch, "cpu"), settings=st,
+                                          opt=opt)[0](state, batch)
         finally:
             torch.set_num_threads(threads)
-        got, gmet = build_train_step(cfg, "cuda", settings=st, opt=opt)(card_state, batch)
+        got, gmet = build_train_step(cfg, _mesh11(torch, "cuda"), settings=st,
+                                     opt=opt)[0](card_state, batch)
         check(all(a.device.type == "cuda" for _, a in tree_leaves(got)),
               f"train_path: {name} state not on the card")
         rows[name] = _check_step(name, opt, got, gmet, want, wmet)
@@ -2910,7 +2967,7 @@ def _train_long(torch) -> dict:
     torch.cuda.reset_peak_memory_stats()
     state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0),
                              device="cuda")
-    step = build_train_step(cfg, "cuda", settings=st, opt=opt)
+    step = build_train_step(cfg, _mesh11(torch, "cuda"), settings=st, opt=opt)[0]
     data = DataConfig(vocab=cfg.vocab, batch=TRAIN_LONG_B, seq=TRAIN_LONG_S, seed=0)
     ms, losses = [], []
     for i in range(TRAIN_LONG_COLD + TRAIN_LONG_STEPS):
@@ -2977,27 +3034,34 @@ def phase_train(torch, sides: list[dict]) -> dict:
     seen = {"ms": [], "losses": [], "cfg": None, "capture": False, "first": None}
     build = ltrain.build_train_step
 
-    def timed_build(cfg, device, **kw):
-        """The driver's step, each call synchronized and timed; with
-        ``seen["capture"]`` its first call's state and batch before, and its
-        state and metrics after, kept on the host (``seen["first"]``)."""
-        step = build(cfg, device, **kw)
+    def timed_build(cfg, mesh, **kw):
+        """The driver's builder, its ``jit_for`` step's calls each
+        synchronized and timed; with ``seen["capture"]`` its first call's
+        state and batch before, and its state and metrics after, kept on
+        the host (``seen["first"]``)."""
+        train_fn, jit_for, state_sh = build(cfg, mesh, **kw)
+        check(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda",
+              f"train_path: the CLI's mesh is {mesh}")
         seen["cfg"], seen["kw"] = cfg, kw
 
-        def timed(state, batch):
-            keep = seen["capture"] and seen["first"] is None
-            if keep:
-                before = (tree_map(lambda a: a.cpu(), state), dict(batch))
-            t0 = time.perf_counter()
-            out = step(state, batch)
-            torch.cuda.synchronize()
-            seen["ms"].append((time.perf_counter() - t0) * 1e3)
-            seen["state"], metrics = out
-            seen["losses"].append(metrics["loss"].item())
-            if keep:   # before the next step writes over the donated state
-                seen["first"] = (*before, tree_map(lambda a: a.cpu(), out[0]), metrics)
-            return out
-        return timed
+        def timed_for(batch_specs):
+            step = jit_for(batch_specs)
+
+            def timed(state, batch):
+                keep = seen["capture"] and seen["first"] is None
+                if keep:
+                    before = (tree_map(lambda a: a.cpu(), state), dict(batch))
+                t0 = time.perf_counter()
+                out = step(state, batch)
+                torch.cuda.synchronize()
+                seen["ms"].append((time.perf_counter() - t0) * 1e3)
+                seen["state"], metrics = out
+                seen["losses"].append(metrics["loss"].item())
+                if keep:   # before the next step writes over the donated state
+                    seen["first"] = (*before, tree_map(lambda a: a.cpu(), out[0]), metrics)
+                return out
+            return timed
+        return train_fn, timed_for, state_sh
 
     def run_main(argv):
         """``ltrain.main(argv)`` with its steps timed (``seen``), its signal
@@ -3051,7 +3115,7 @@ def phase_train(torch, sides: list[dict]) -> dict:
 
     # the CLI's first step again on the CPU, from the same state and batch
     state0, batch0, got, gmet = seen.pop("first")
-    want, wmet = build(cfg, "cpu", **seen["kw"])(state0, batch0)
+    want, wmet = build(cfg, _mesh11(torch, "cpu"), **seen["kw"])[0](state0, batch0)
     full_vs_cpu = _check_step(f"{TRAIN_ARCH} full width", seen["kw"]["opt"], got, gmet,
                               want, wmet)
     del state0, batch0, got, want
@@ -3105,6 +3169,296 @@ def phase_train(torch, sides: list[dict]) -> dict:
             "kill_resume": {"killed_at": 6, "resumed_from": 5, "resumed_steps": len(resumed),
                             "max_rel_diff_vs_uninterrupted": resume_diff,
                             "rtol": TRAIN_RESUME_RTOL},
+            "stages_s": marks, **launched}
+
+
+def _mesh_settings(torch):
+    """The train CLI's settings and optimizer (``launch/train.py`` at
+    ``--steps`` 100 or fewer)."""
+    from repro_torch.models import ModelSettings
+    from repro_torch.train.optim import OptConfig
+
+    return (ModelSettings(q_chunk=32, kv_chunk=64, ce_chunk=64, remat="none",
+                          compute_dtype=torch.float32),
+            OptConfig(lr=1e-3, warmup_steps=20, total_steps=100))
+
+
+def _bit_sums(torch, tree):
+    """Per leaf, two int64 sums of its float32 bits, plain and weighted by
+    position (mod 65521), on the host: equal bits give equal sums."""
+    from repro_torch.models.common import tree_leaves
+
+    out = []
+    for _, a in tree_leaves(tree):
+        b = a.reshape(-1).view(torch.int32).long()
+        w = torch.arange(b.numel(), device=b.device) % 65521 + 1
+        out += [b.sum(), (b * w).sum()]
+    return torch.stack(out).cpu()
+
+
+def _mesh_rank(rank: int, port: int, out_dir: str, t_spawn: float) -> None:
+    """mesh_path (b): pod ``rank`` of the (2, 1, 1) mesh on the shared card,
+    on its rows of each batch; writes ``mesh_rank{rank}.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.tokens import DataConfig, batch_at
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.sharding import batch_shardings, local_tree
+    from repro_torch.train.step import build_train_step, init_train_state
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2)
+    try:
+        boot = time.time() - t_spawn
+        mesh = make_mesh((2, 1, 1), MESH_AXES, device="cuda")
+        cfg = ARCHS[TRAIN_ARCH]
+        st, opt = _mesh_settings(torch)
+        state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                 grad_compress=MESH_METHOD, device="cuda")
+        _, jit_for, _ = build_train_step(cfg, mesh, settings=st, opt=opt,
+                                         grad_compress=MESH_METHOD)
+        data = DataConfig(vocab=cfg.vocab, batch=TRAIN_B, seq=TRAIN_S, seed=0)
+        ms, losses, same, rows_of = [], [], [], []
+        for i in range(MESH_POD_STEPS):
+            batch = {k: torch.from_numpy(v) for k, v in batch_at(data, i).items()}
+            rows = local_tree(batch, batch_shardings(batch, mesh))
+            rows_of.append(rows["tokens"].shape[0])
+            step = jit_for(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, rows)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(met["loss"].item())
+            sums = _bit_sums(torch, {k: state[k] for k in ("params", "m", "v")})
+            both = [torch.empty_like(sums) for _ in range(2)]
+            dist.all_gather(both, sums)
+            same.append(bool(torch.equal(both[0], both[1])))
+        with open(os.path.join(out_dir, f"mesh_rank{rank}.json"), "w") as f:
+            json.dump({"rank": rank, "boot_s": boot, "ms_per_step": ms, "losses": losses,
+                       "same_params_m_v": same, "rows": rows_of,
+                       "grad_compress_ratio": met["grad_compress_ratio"].item(),
+                       "grad_compress_leaves": met["grad_compress_leaves"].item()}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _topk_checks(torch, gc, flush, compressed: list, small: list, cfg) -> dict:
+    """The first compressed step's checks: sent + residual == the grad in
+    every leaf compressed, kept >= dropped in every block, and the card's
+    top-k of the embedding's and of a padded leaf's corrected grad equal to
+    the CPU's."""
+    for (g, zero), (sent, res) in small:
+        check(zero, "mesh_path: the first step's residual is not zero")
+        want = (flush(g.float()) + 0.0).view(torch.int32)   # -0 as +0, as 0 + v gives
+        got = (sent.float() + res + 0.0).view(torch.int32)
+        check(torch.equal(got, want),
+              f"mesh_path: sent + residual != grad in a {tuple(g.shape)} leaf")
+    for (x, _ratio), (vals, idx) in compressed:
+        flat = x.reshape(-1)
+        bl = min(gc._BLOCK, flat.numel())
+        pad = (-flat.numel()) % bl
+        rows = torch.cat([flat, flat.new_zeros(pad)]).reshape(-1, bl).abs()
+        keep = torch.zeros_like(rows, dtype=torch.bool).scatter_(1, idx.long(), True)
+        kept_min = vals.abs().min(dim=1).values
+        dropped_max = rows.masked_fill(keep, 0.0).max(dim=1).values
+        check(bool((kept_min >= dropped_max).all()),
+              f"mesh_path: a block of a {tuple(x.shape)} leaf dropped a larger |value| "
+              "than it kept")
+    embed = [c for c in compressed if c[0][0].numel() == cfg.vocab * cfg.d_model]
+    padded = sorted((c for c in compressed if c[0][0].numel() % gc._BLOCK
+                     and c[0][0].numel() > gc._BLOCK), key=lambda c: c[0][0].numel())
+    check(len(embed) == 1 and padded, "mesh_path: no embedding or padded leaf compressed")
+    out = {}
+    for name, ((x, ratio), (vals, idx)) in (("embed", embed[0]), ("padded", padded[0])):
+        t0 = time.perf_counter()
+        cv, ci = gc.topk_compress(x.cpu(), ratio)
+        cpu_s = time.perf_counter() - t0
+        dense = gc.topk_decompress(vals, idx, x.shape)
+        cpu_dense = gc.topk_decompress(cv, ci, x.shape)
+        same = (_bit_equal(torch, vals.cpu(), cv) and torch.equal(idx.cpu(), ci)
+                and _bit_equal(torch, dense.cpu(), cpu_dense))
+        check(same, f"mesh_path: top-k of the {name} leaf on the card differs from the CPU's")
+        out[name] = {"numel": x.numel(), "blocks": vals.shape[0], "k": vals.shape[1],
+                     "bit_equal": same, "cpu_compress_s": cpu_s}
+    return out
+
+
+def phase_mesh(torch, tmp: str, sides: list[dict]) -> dict:
+    """Training on a mesh with a "pod" axis and compressed gradients: (a) a
+    (1, 1, 1) mesh in this process, dense and ``topk32`` steps from one
+    state; (b) two processes on a (2, 1, 1) mesh sharing the card."""
+    import math
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core._xla import flush
+    from repro_torch.data.tokens import DataConfig, batch_at
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train import grad_compress as gc
+    from repro_torch.train.step import build_train_step, init_train_state
+
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "mesh_path: TF32 matmuls are on; the float32 comparisons need them off")
+    counted, launched = _launch_counter("mesh_path", sides)
+    marks, t_mark = {}, time.perf_counter()
+
+    def mark(name: str) -> None:
+        nonlocal t_mark
+        now = time.perf_counter()
+        marks[name] = now - t_mark
+        t_mark = now
+
+    cfg = ARCHS[TRAIN_ARCH]
+    st, opt = _mesh_settings(torch)
+    data = DataConfig(vocab=cfg.vocab, batch=TRAIN_B, seq=TRAIN_S, seed=0)
+    batches = [{k: torch.from_numpy(v) for k, v in batch_at(data, i).items()}
+               for i in range(MESH_STEPS)]
+    mesh = make_mesh((1, 1, 1), MESH_AXES, device="cuda")
+    torch.cuda.empty_cache()
+    init = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            grad_compress=MESH_METHOD, device="cuda")
+    leaf_sizes = [a.numel() for _, a in tree_leaves(init["params"])]
+    n_params = sum(leaf_sizes)
+    events, seen = [], {"first": False, "compress": [], "small": []}
+
+    def run(state, jit_for):
+        ms, losses, topk_ms = [], [], []
+        for i, batch in enumerate(batches):
+            seen["first"] = i == 0
+            step = jit_for(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(met["loss"].item())
+            topk_ms.append(sum(a.elapsed_time(b) for a, b in events))
+            events.clear()
+        seen["first"] = False
+        return state, met, ms, losses, topk_ms
+
+    # (a) dense steps: no grad_compress, the normal branch
+    _, dense_for, _ = build_train_step(cfg, mesh, settings=st, opt=opt)
+    dense = {k: tree_map(torch.clone, init[k]) for k in ("params", "m", "v", "step")}
+    (_, dmet, dense_ms, dense_losses, _), dense_s, _ = counted(
+        {}, "dense steps", lambda: run(dense, dense_for))
+    check(all(math.isfinite(x) for x in dense_losses) and "grad_compress_ratio" not in dmet,
+          f"mesh_path: dense losses {dense_losses}, metrics {sorted(dmet)}")
+    del dense
+    mark("dense")
+
+    # (a) topk32 steps: each top-k call between CUDA events, the first
+    # step's compressions and leaves kept for the checks
+    compress, decompress, one_small = gc.topk_compress, gc.topk_decompress, gc._one_small
+
+    def timed(fn, keep):
+        def call(*args):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args)
+            b.record()
+            events.append((a, b))
+            if keep and seen["first"]:
+                seen[keep].append((args, out))
+            return out
+        return call
+
+    def kept_small(g, r, *rest):
+        # r is the state's residual, which the donated step then overwrites
+        zero = seen["first"] and not r.any()
+        out = one_small(g, r, *rest)
+        if seen["first"]:
+            seen["small"].append(((g, zero), out))
+        return out
+
+    _, topk_for, _ = build_train_step(cfg, mesh, settings=st, opt=opt,
+                                      grad_compress=MESH_METHOD)
+    comp = init
+    gc.topk_compress, gc.topk_decompress = timed(compress, "compress"), timed(decompress, "")
+    gc._one_small = kept_small
+    try:
+        (state, cmet, topk_step_ms, topk_losses, topk_ms), topk_s, _ = counted(
+            {}, "topk32 steps", lambda: run(comp, topk_for))
+    finally:
+        gc.topk_compress, gc.topk_decompress, gc._one_small = compress, decompress, one_small
+    check(all(math.isfinite(x) for x in topk_losses)
+          and cmet["grad_compress_ratio"].item() == MESH_RATIO
+          and cmet["grad_compress_leaves"].item() == len(leaf_sizes),
+          f"mesh_path: topk32 losses {topk_losses}, metrics "
+          f"{ {k: v.item() for k, v in cmet.items()} }")
+    check(topk_losses[0] == dense_losses[0],
+          f"mesh_path: the first topk32 loss {topk_losses[0]} is not the dense "
+          f"{dense_losses[0]} (same state and batch)")
+    compressed, small = seen["compress"], seen["small"]
+    n_tiny = sum(1 for n in leaf_sizes if n < 4 * MESH_RATIO)
+    check(len(small) == len(leaf_sizes) - n_tiny == len(compressed),
+          f"mesh_path: {len(small)} leaves compressed of {len(leaf_sizes)} ({n_tiny} tiny)")
+    payload = sum(v.numel() * v.element_size() + i.numel() * i.element_size()
+                  for _, (v, i) in compressed)
+    payload += 4 * sum(n for n in leaf_sizes if n < 4 * MESH_RATIO)
+    del state, comp
+    mark("topk")
+    card_vs_cpu = _topk_checks(torch, gc, flush, compressed, small, cfg)
+    del compressed, small
+    seen.clear()
+    mark("checks")
+
+    # (b) two processes on the one card, a pod each
+    out_dir = os.path.join(tmp, "mesh")
+    os.makedirs(out_dir, exist_ok=True)
+    torch.cuda.empty_cache()
+    port = _free_port()
+    t_spawn = time.time()
+    counted({}, "two pods", lambda: mp.spawn(_mesh_rank, args=(port, out_dir, t_spawn),
+                                             nprocs=2, join=True))
+    pods_s = time.time() - t_spawn
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"mesh_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    check(all(all(r["same_params_m_v"]) for r in ranks) and ranks[0]["losses"] == ranks[1]["losses"],
+          f"mesh_path: the pods differ after a step: {ranks}")
+    check(all(r["rows"] == [TRAIN_B // 2] * MESH_POD_STEPS for r in ranks),
+          f"mesh_path: a pod's rows {[r['rows'] for r in ranks]}")
+    loss_rel = abs(ranks[0]["losses"][0] - dense_losses[0]) / abs(dense_losses[0])
+    check(loss_rel <= MESH_LOSS_RTOL,
+          f"mesh_path: the pods' step-1 loss {ranks[0]['losses'][0]} against the dense "
+          f"{dense_losses[0]}: {loss_rel} relative")
+    mark("two_pods")
+    warm = lambda ms: statistics.median(ms[1:])   # noqa: E731  (the first step warms up)
+    return {"arch": TRAIN_ARCH, "batch": TRAIN_B, "seq": TRAIN_S, "n_params": n_params,
+            "settings": "the train CLI's: float32, q 32 / kv 64 / ce 64, no remat, lr 1e-3",
+            "one_pod": {"mesh": [1, 1, 1], "axes": list(MESH_AXES), "steps": MESH_STEPS,
+                        "dense": {"ms_per_step": dense_ms, "warm_ms": warm(dense_ms),
+                                  "losses": dense_losses, "seconds": dense_s},
+                        "topk32": {"ms_per_step": topk_step_ms, "warm_ms": warm(topk_step_ms),
+                                   "losses": topk_losses, "seconds": topk_s,
+                                   "topk_ms_per_step": topk_ms,
+                                   "topk_share": [a / b for a, b in zip(topk_ms, topk_step_ms)]},
+                        "leaves": len(leaf_sizes), "tiny_leaves_dense": n_tiny,
+                        "bytes_per_pod_step": {"dense": 4 * n_params, "topk32": payload,
+                                               "ratio": 4 * n_params / payload},
+                        "card_vs_cpu": card_vs_cpu},
+            "two_pods": {"mesh": [2, 1, 1], "backend": "gloo", "steps": MESH_POD_STEPS,
+                         "seconds": pods_s, "boot_s": [r["boot_s"] for r in ranks],
+                         "ms_per_step": [r["ms_per_step"] for r in ranks],
+                         "losses": ranks[0]["losses"],
+                         "step1_loss_vs_dense_rel": loss_rel, "rtol": MESH_LOSS_RTOL},
             "stages_s": marks, **launched}
 
 
@@ -3339,6 +3693,10 @@ def main() -> int:
         t0 = time.perf_counter()
         train_path = phase_train(torch, sides)
         emit({"phase": "train_path", "seconds": time.perf_counter() - t0, **train_path})
+        t0 = time.perf_counter()
+        mesh_path = phase_mesh(torch, tmp, sides)
+        emit({"phase": "mesh_path", "seconds": time.perf_counter() - t0, **mesh_path})
+        print(card, flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's launches on its own path

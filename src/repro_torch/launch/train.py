@@ -2,10 +2,12 @@
 ``repro.launch.train``).
 
 Runs on the card by default (``--device cuda``); ``--device cpu --reduced``
-(a tiny same-family config) runs anywhere.  Deterministic resumable data,
-compressed checkpoints (fpzipx) with atomic commit and retention,
-auto-resume from the latest, preemption (SIGTERM) checkpointing, a
-straggler watchdog, and fault injection for tests (``--fail-at-step``).
+(a tiny same-family config) runs anywhere.  The step is the mesh step's
+``jit_for`` on a 1x1 ("data", "model") mesh, as the reference driver's.
+Deterministic resumable data, compressed checkpoints (fpzipx) with atomic
+commit and retention, auto-resume from the latest, preemption (SIGTERM)
+checkpointing, a straggler watchdog, and fault injection for tests
+(``--fail-at-step``).
 Its lines are the reference driver's.
 
     python -m repro_torch.launch.train --device cpu --reduced \\
@@ -28,6 +30,7 @@ from repro_torch.core.pipeline import CompressionSpec
 from repro_torch.core.schemes import torch_device
 from repro_torch.data.tokens import DataConfig, batch_at
 from repro_torch.dist.fault import PreemptionHandler, StragglerWatchdog
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import ModelSettings
 from repro_torch.train.optim import OptConfig
 from repro_torch.train.step import build_train_step, init_train_state
@@ -65,18 +68,22 @@ def main(argv=None):
     st = ModelSettings(q_chunk=32, kv_chunk=64, ce_chunk=64, remat="none",
                        compute_dtype=torch.float32)
     opt = OptConfig(lr=args.lr, warmup_steps=20, total_steps=max(args.steps, 100))
+    mesh = make_mesh((1, 1), ("data", "model"), device=dev)
 
     data_cfg = DataConfig(vocab=cfg.vocab, batch=args.batch, seq=args.seq,
                           seed=args.seed, branching=args.data_branching,
                           n_regimes=args.data_regimes)
 
-    train_step = build_train_step(cfg, dev, settings=st, opt=opt, donate=True)
+    _, jit_for, _ = build_train_step(cfg, mesh, settings=st, opt=opt, donate=True)
+    batch0 = {k: torch.from_numpy(v) for k, v in batch_at(data_cfg, 0).items()}
     frames = None
     if cfg.family == "encdec":
         rng = np.random.default_rng(0)
         frames = torch.from_numpy(
             rng.standard_normal((args.batch, cfg.enc_frames, cfg.d_model))
             .astype(np.float32)).to(dev)
+        batch0["frames"] = frames
+    train_step = jit_for(batch0)
 
     # --- state init or resume -------------------------------------------
     ckpt = None

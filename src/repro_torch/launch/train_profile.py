@@ -2,8 +2,8 @@
 one step under ``torch.profiler``.
 
 For each batch size in ``--batches``: one step to warm up, then
-``--steps`` synchronized steps of ``build_train_step`` at
-``ModelSettings()``'s defaults, on ``batch_at``'s data.  Then one more
+``--steps`` synchronized steps of ``build_train_step``'s ``train_step`` on a
+1x1 mesh at ``ModelSettings()``'s defaults, on ``batch_at``'s data.  Then one more
 step of the last batch size runs under the profiler, which counts the host's kernel launches
 (``cudaLaunchKernel`` calls), the kernels and their summed device time;
 the device's busy share is that time over the median unprofiled step of
@@ -30,6 +30,7 @@ import torch
 from repro_torch.configs import get_arch, reduced
 from repro_torch.core.schemes import torch_device
 from repro_torch.data.tokens import DataConfig, batch_at
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import ModelSettings
 from repro_torch.train.optim import OptConfig
 from repro_torch.train.step import build_train_step, init_train_state
@@ -76,8 +77,9 @@ def main(argv=None) -> dict:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    step = build_train_step(cfg, dev, settings=ModelSettings(),
-                            opt=OptConfig(lr=1e-3, warmup_steps=20, total_steps=100))
+    mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+    step, _, _ = build_train_step(cfg, mesh, settings=ModelSettings(),
+                                  opt=OptConfig(lr=1e-3, warmup_steps=20, total_steps=100))
     state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     result = {"arch": cfg.name, "seq": args.seq, "settings": "ModelSettings() defaults",
               "ms_per_step": {}}

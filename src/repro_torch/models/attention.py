@@ -20,7 +20,10 @@ Causal modes:
                            (the reference's context-parallel form, here on
                            one device).
 
-The mesh shardings are not ported yet (ROADMAP item 10b-ii).
+The reference's mesh sharding constraints (``attn_shard``, ``shard_axes``)
+are layout hints; on a mesh the port gathers the parameters at use and
+computes a rank's rows whole (:mod:`repro_torch.train.step`), so they
+change nothing here.
 """
 from __future__ import annotations
 
@@ -243,10 +246,9 @@ def flash_attention(q, k, v, *, causal: bool, q_chunk: int = 256,
 
     When a grad is needed it runs through the hand-written backward
     (:class:`_Flash`).  ``shard_axes`` (the reference's context-parallel
-    mesh axes) must be ``None``: one device computes every chunk."""
-    if shard_axes is not None:
-        raise NotImplementedError("sharded flash attention needs the mesh of ROADMAP "
-                                  "item 10b-ii")
+    mesh axes) is a layout hint there, a sharding constraint on the q-chunk
+    grid; the port gathers the parameters at use and computes every chunk
+    on the rank, so it changes nothing here."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _Flash.apply(q, k, v, causal, q_chunk, kv_chunk, q_offset, impl)
     out, _ = _flash_fwd_impl(q, k, v, causal, q_chunk, kv_chunk, q_offset, impl)
@@ -279,14 +281,11 @@ def attention(x, p, cfg, *, causal=True, impl="masked", q_chunk=256,
     """Full-sequence attention (train/prefill). x: (B,S,D).
 
     ``attn_shard="cp"`` computes with the context-parallel impl, as the
-    reference does on any mesh.  ``"replicate"`` and ``"heads"`` place q/k/v
-    on a mesh's "model" axis; with ``n_model > 1`` they raise, since the
-    port has no mesh yet (ROADMAP item 10b-ii).  ``batch_axes`` names mesh axes
-    and is unused on one device."""
-    if attn_shard in ("replicate", "heads") and n_model > 1:
-        raise NotImplementedError(
-            f"attn_shard={attn_shard!r} over a {n_model}-way model axis needs the "
-            "mesh shardings of ROADMAP item 10b-ii")
+    reference does on any mesh.  ``"replicate"`` and ``"heads"`` (and
+    ``"cp"``'s ``shard_axes``) with ``n_model > 1`` are the reference's
+    sharding constraints on q/k/v over ``batch_axes`` and "model": layout
+    hints, which change no value.  The port gathers the parameters at use
+    and computes a rank's rows whole, so they do nothing here."""
     B, S, D = x.shape
     use_rope = cfg.family != "encdec"
     positions = torch.arange(S, device=x.device)[None, :]

@@ -5,8 +5,9 @@ conversion is leaf for leaf: :func:`from_reference` takes the reference's
 tree (numpy arrays, or anything ``np.asarray`` reads, such as JAX arrays)
 to torch tensors on a device, :func:`to_reference` takes a port tree back
 to numpy.  :func:`state_from_reference` and :func:`state_to_reference` carry
-a whole train state (``params``, ``m``, ``v``, ``step``) and check its form:
-m and v float32, step a 0-d int32.  bfloat16 travels as its bits, so
+a whole train state (``params``, ``m``, ``v``, ``step``, and ``residual``
+with gradient compression) and check its form: m, v and residual float32,
+step a 0-d int32.  bfloat16 travels as its bits, so
 neither direction needs ``ml_dtypes`` unless a bfloat16 numpy array is
 asked for.
 """
@@ -53,12 +54,15 @@ def to_reference(tree):
 
 
 _STATE_KEYS = ("m", "params", "step", "v")
+_COMPRESSED_KEYS = ("m", "params", "residual", "step", "v")   # with grad_compress
 
 
 def _check_state(state, float32, int32) -> None:
-    if tuple(sorted(state)) != _STATE_KEYS:
-        raise ValueError(f"a train state has the keys {_STATE_KEYS}, not {tuple(sorted(state))}")
-    for k in ("m", "v"):
+    keys = tuple(sorted(state))
+    if keys not in (_STATE_KEYS, _COMPRESSED_KEYS):
+        raise ValueError(f"a train state has the keys {_STATE_KEYS} (and 'residual' with "
+                         f"grad_compress), not {keys}")
+    for k in sorted({"m", "v", "residual"} & set(keys)):
         bad = [a.dtype for _, a in tree_leaves(state[k]) if a.dtype != float32]
         if bad:
             raise ValueError(f"train state {k!r} must be float32, has {bad[0]}")

@@ -47,7 +47,9 @@ class ModelSettings:
     compute_dtype: Any = torch.bfloat16
     rwkv_chunk: int = 0             # 0 = sequential loop; >0 = chunked WKV
     attn_shard: str = "auto"        # auto | replicate | heads | cp
-    # distribution-aware fields (a mesh's; one device leaves them as they are)
+    # distribution-aware fields: the reference's sharding constraints over a
+    # mesh, layout hints that change no value; the port gathers at use and
+    # computes a rank's rows whole, so they do nothing here
     act_shard: str = "seq"          # none | seq | hidden — layer-boundary
     batch_axes: tuple = ("data",)   # mesh axes sharding the batch dim
     n_model: int = 1                # "model" axis size (1 = no constraint)

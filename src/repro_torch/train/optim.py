@@ -91,8 +91,13 @@ def _unzip(tree, i):
 def adamw_step(params, grads, opt_state, cfg: OptConfig):
     """Returns (new_params, new_opt_state, metrics).  New tensors; the
     inputs are left as they are."""
+    return adamw_update(params, grads, opt_state, cfg, _global_norm(grads))
+
+
+def adamw_update(params, grads, opt_state, cfg: OptConfig, gnorm):
+    """:func:`adamw_step` with the grads' global norm given: a sharded step
+    passes the norm over every rank's blocks, and updates its blocks."""
     step = opt_state["step"]
-    gnorm = _global_norm(grads)
     # a tensor numerator: torch computes ``scalar / tensor`` as a reciprocal
     # times the scalar, two roundings where jnp divides once
     clip = torch.full_like(gnorm, cfg.clip_norm)

@@ -1,117 +1,276 @@
-"""Train-step builder: loss -> grads -> AdamW on one torch device (port of
-``repro.train.step``, without a mesh).
+"""Train-step builder: loss -> grads -> (optional compressed cross-pod
+reduce) -> AdamW over a device mesh (port of ``repro.train.step``).
 
-The reference jits the step over a mesh with explicit shardings and returns
-``(train_step, jit_for, state_sh)``; the port runs ``train_step`` eagerly on
-``device`` and returns it alone, as :mod:`repro_torch.serve.step`'s builders
-do (the mesh arrives with ROADMAP item 10b-ii).  Gradients come from
-``torch.autograd.grad`` on the leaves of ``state["params"]``; the
-attention backward is the hand-written one of
-:mod:`repro_torch.models.attention`.  Cross-pod gradient compression
-(``grad_compress``) is ROADMAP item 10c.
+The mesh is a ``DeviceMesh`` (:mod:`repro_torch.launch.mesh`) and the state
+is laid out by :func:`train_state_shardings`.  The reference's GSPMD
+partitions the compute; the port gathers at use, ZeRO-3 style: a rank
+holds its blocks of the state and its rows of the batch, gathers each
+parameter whole, computes its rows' loss and grads with the single-device
+model (the attention backward is the hand-written one of
+:mod:`repro_torch.models.attention`), reduce-scatters the grads, averaged
+over the batch axes, to the moments' placement, and runs AdamW on its
+blocks.  The "model" ranks compute the same rows (the same numbers as
+GSPMD's, not its partitioned compute).  The global-norm clip sums the
+squares of every leaf's blocks once (a rank adds a leaf only where its
+coordinate is 0 on each axis the leaf is replicated over) in one
+all-reduce.  With ``grad_compress`` set and a "pod" axis present, the
+grads go through :func:`~repro_torch.train.grad_compress.pod_compressed_grads`
+(top-k with error feedback across pods).  On a mesh of one device every
+group has size 1 and no collective runs: the step is the single-device
+step.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.core.schemes import torch_device
+from repro_torch.launch.mesh import axis_sizes, batch_axes
 from repro_torch.models import ModelSettings, init_params, lm_loss, param_specs
 from repro_torch.models.common import tree_leaves, tree_map
 
-from .optim import OptConfig, adamw_step, init_opt_state
+from .optim import OptConfig, _recip, adamw_update, init_opt_state
+from .sharding import (_axes, batch_shardings, gather_tree, local_tree, path_str,
+                       state_shardings)
 
-__all__ = ["build_train_step", "train_state_specs", "init_train_state"]
-
-
-def _no_grad_compress(grad_compress) -> None:
-    if grad_compress:
-        raise NotImplementedError(
-            f"grad_compress={grad_compress!r}: gradient compression is ROADMAP item 10c")
+__all__ = ["build_train_step", "train_state_specs", "train_state_shardings",
+           "init_train_state"]
 
 
 def train_state_specs(cfg, dtype=torch.float32, grad_compress=None, param_dtype=None):
     """The train state as ``meta`` tensors: params (``param_dtype`` or
-    ``dtype``), m and v (``dtype``), step (int32, 0-d)."""
-    _no_grad_compress(grad_compress)
+    ``dtype``), m and v (``dtype``), step (int32, 0-d), and with
+    ``grad_compress`` the error-feedback ``residual`` (``dtype``)."""
     mv = param_specs(cfg, dtype)
-    return {"params": param_specs(cfg, param_dtype or dtype), "m": mv, "v": mv,
-            "step": torch.empty((), dtype=torch.int32, device="meta")}
+    state = {"params": param_specs(cfg, param_dtype or dtype), "m": mv, "v": mv,
+             "step": torch.empty((), dtype=torch.int32, device="meta")}
+    if grad_compress:
+        state["residual"] = mv  # error-feedback memory
+    return state
+
+
+def train_state_shardings(cfg, mesh, grad_compress=None, mode: str = "fsdp",
+                          param_dtype=None):
+    return state_shardings(
+        train_state_specs(cfg, grad_compress=grad_compress, param_dtype=param_dtype),
+        mesh, hybrid=(cfg.family == "hybrid"), mode=mode)
 
 
 def init_train_state(cfg, generator: torch.Generator, grad_compress=None,
                      device=DEFAULT_DEVICE):
-    """Random parameters from ``generator`` and a fresh optimizer state,
-    all on ``device``."""
-    _no_grad_compress(grad_compress)
+    """Random parameters from ``generator`` and a fresh optimizer state
+    (and a zero residual with ``grad_compress``), all on ``device``."""
     params = init_params(cfg, generator, device=torch_device(device))
-    return {"params": params, **init_opt_state(params)}
+    state = {"params": params, **init_opt_state(params)}
+    if grad_compress:
+        state["residual"] = tree_map(torch.zeros_like, params)
+    return state
 
 
-def build_train_step(cfg, device, *, settings: ModelSettings = ModelSettings(),
+def _value_and_grad(params, batch, cfg, settings):
+    """(loss, metrics, grads) of ``lm_loss`` at ``params``, detached; a leaf
+    the loss does not reach gets zeros, as ``jax.grad`` gives it."""
+    p = tree_map(lambda a: a.detach().requires_grad_(True), params)
+    live = [a for _, a in tree_leaves(p)]
+    with torch.enable_grad():
+        loss, metrics = lm_loss(p, batch, cfg, settings)
+        grads = torch.autograd.grad(loss, live, allow_unused=True, materialize_grads=True)
+    by_leaf = dict(zip(map(id, live), grads))
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, tree_map(lambda a: by_leaf[id(a)], p)
+
+
+def _axes_sum(x, mesh, axes) -> tuple[torch.Tensor, int]:
+    """``x`` summed over each of ``axes``' groups (a new tensor, ``x``
+    itself where every group has size 1); and the count of ranks summed."""
+    sizes, n = axis_sizes(mesh), 1
+    for a in axes:
+        if sizes[a] > 1:
+            x = x.clone() if n == 1 else x
+            dist.all_reduce(x, group=mesh.get_group(a))
+            n *= sizes[a]
+    return x, n
+
+
+def _mean(x, mesh, axes):
+    x, n = _axes_sum(x, mesh, axes)
+    return x if n == 1 else x * _recip(n)
+
+
+def _batch_mean(loss, metrics, grads, mesh, axes):
+    """The loss, metrics and whole grads averaged over ``axes``."""
+    return (_mean(loss, mesh, axes), {k: _mean(v, mesh, axes) for k, v in metrics.items()},
+            tree_map(lambda g: _mean(g, mesh, axes), grads))
+
+
+def _reduce_to(g, sh, mesh, baxes, n_batch: int):
+    """This rank's whole-leaf grad ``g`` -> the batch ranks' mean in
+    ``sh``'s block: reduce-scatter over a batch axis that splits a dim of
+    the leaf, all-reduce over one that does not, then this rank's block
+    along the other split dims."""
+    sizes = axis_sizes(mesh)
+    split = {a: d for d, part in enumerate(sh.spec) for a in _axes(part)}
+    for a in baxes:
+        n = sizes[a]
+        if n == 1:
+            continue
+        group = mesh.get_group(a)
+        if a not in split:
+            dist.all_reduce(g, group=group)
+            continue
+        chunks = [c.contiguous() for c in g.chunk(n, dim=split[a])]
+        g = torch.empty_like(chunks[0])
+        dist.reduce_scatter(g, chunks, group=group)
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    for a, d in split.items():
+        if a not in baxes and sizes[a] > 1:
+            step = g.shape[d] // sizes[a]
+            g = g.narrow(d, coord[a] * step, step)
+    return g if n_batch == 1 else g * _recip(n_batch)
+
+
+def _sharded_norm(grads, shardings, mesh):
+    """The global norm of a tree of blocks: each leaf's squares counted once
+    over the mesh (by the ranks at coordinate 0 on every axis the leaf is
+    replicated over), summed in one all-reduce."""
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    total = None
+    for (_, g), (_, sh) in zip(tree_leaves(grads), tree_leaves(shardings)):
+        used = {a for part in sh.spec for a in _axes(part)}
+        if any(c != 0 for a, c in coord.items() if a not in used):
+            continue
+        s = torch.sum(torch.square(g.to(torch.float32)))
+        total = s if total is None else total + s
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32, device=next(tree_leaves(grads))[1].device)
+    if mesh.size() > 1:
+        dist.all_reduce(total)
+    return torch.sqrt(total)
+
+
+def _block_shapes(specs, shardings) -> dict:
+    return {p: sh.shard_shape(s.shape) for (p, s), (_, sh)
+            in zip(tree_leaves(specs), tree_leaves(shardings))}
+
+
+def _check_blocks(tree, shapes: dict, what: str) -> None:
+    got = {p: tuple(a.shape) for p, a in tree_leaves(tree)}
+    if got != shapes:
+        bad = {path_str(p): (got.get(p), shapes.get(p)) for p in set(got) | set(shapes)
+               if got.get(p) != shapes.get(p)}
+        raise ValueError(f"{what}: not this rank's blocks (got, want): {bad}")
+
+
+def build_train_step(cfg, mesh, *, settings: ModelSettings = ModelSettings(),
                      opt: OptConfig = OptConfig(), grad_compress: str | None = None,
-                     donate: bool = True, micro_batches: int = 1, param_dtype=None):
-    """Returns ``train_step(state, batch) -> (state, metrics)``, metrics with
-    the reference's keys: ``loss``, ``ce``, the aux losses, ``grad_norm``
-    and ``lr`` (0-d tensors).
+                     donate: bool = True, micro_batches: int = 1,
+                     sharding_mode: str = "fsdp", param_dtype=None):
+    """Returns ``(train_step, jit_for, state_sh)``.
 
-    ``micro_batches > 1`` splits the batch along its first axis and sums
-    the micro-batches' grads in float32, then scales by ``1/micro_batches``,
-    as the reference's scan does.  ``donate=True`` writes the new params, m,
-    v and step into the state's tensors (the reference's donated buffers);
-    ``False`` leaves the caller's state as it was.  ``param_dtype`` (the
-    reference's low-precision parameters under a mesh) is ROADMAP item
-    10b-ii: anything but ``None`` raises."""
-    _no_grad_compress(grad_compress)
-    if param_dtype is not None:
-        raise NotImplementedError(
-            f"param_dtype={param_dtype!r}: parameters in another dtype than the "
-            "optimizer's come with the mesh, ROADMAP item 10b-ii")
-    dev = torch_device(device)
-    settings = dataclasses.replace(settings, n_model=1, n_batch=1)
+    ``jit_for(batch_specs)`` (the global batch's shapes) returns
+    ``step(state, batch) -> (state, metrics)`` over this rank's blocks of
+    the state (laid out by ``state_sh``) and its rows of the batch (its
+    ``batch_shardings`` block); metrics carry the reference's keys
+    (``loss``, ``ce``, the aux losses, ``grad_norm``, ``lr``, and with the
+    compressed branch ``grad_compress_ratio`` and ``grad_compress_leaves``)
+    as 0-d tensors.  ``train_step(state, batch)`` takes and returns the
+    whole state and batch (every rank passes the same), through ``step``.
 
-    def value_and_grad(params, batch):
-        p = tree_map(lambda a: a.detach().requires_grad_(True), params)
-        live = [a for _, a in tree_leaves(p)]
-        with torch.enable_grad():
-            loss, metrics = lm_loss(p, batch, cfg, settings)
-            # a leaf the loss does not reach gets zeros, as jax.grad gives it
-            grads = torch.autograd.grad(loss, live, allow_unused=True,
-                                        materialize_grads=True)
-        by_leaf = dict(zip(map(id, live), grads))
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return loss.detach(), metrics, tree_map(lambda a: by_leaf[id(a)], p)
+    ``micro_batches > 1`` splits a rank's rows along the first axis and sums
+    the micro-batches' grads in float32, then scales by ``1/micro_batches``.
+    ``donate=True`` writes the new state into the given tensors (the
+    reference's donated buffers); ``False`` leaves them as they were.
+    ``param_dtype`` sets the parameters' dtype in the state's specs and
+    shardings, as in the reference."""
+    from .grad_compress import pod_compressed_grads
+
+    sizes = axis_sizes(mesh)
+    baxes = batch_axes(mesh)
+    nb = 1
+    for a in baxes:
+        nb *= sizes[a]
+    settings = dataclasses.replace(settings, batch_axes=baxes, n_model=sizes["model"],
+                                   n_batch=nb)
+    multi_pod = "pod" in mesh.mesh_dim_names
+    dev = torch.device(mesh.device_type)
+    specs = train_state_specs(cfg, grad_compress=grad_compress, param_dtype=param_dtype)
+    state_sh = train_state_shardings(cfg, mesh, grad_compress=grad_compress,
+                                     mode=sharding_mode, param_dtype=param_dtype)
+    state_shapes = _block_shapes(specs, state_sh)
+    # the grads reduce to the moments' placement, where AdamW runs
+    moment_sh = state_sh["m"]
+    same_layout = all(a.spec == b.spec for (_, a), (_, b)
+                      in zip(tree_leaves(state_sh["params"]), tree_leaves(moment_sh)))
 
     def grads_of(params, batch):
         if micro_batches == 1:
-            return value_and_grad(params, batch)
+            return _value_and_grad(params, batch, cfg, settings)
         mb = {k: v.reshape(micro_batches, v.shape[0] // micro_batches, *v.shape[1:])
               for k, v in batch.items()}
         g_acc = tree_map(lambda a: torch.zeros(a.shape, dtype=torch.float32, device=a.device),
                          params)
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(micro_batches):
-            loss, _, g = value_and_grad(params, {k: v[i] for k, v in mb.items()})
+            loss, _, g = _value_and_grad(params, {k: v[i] for k, v in mb.items()}, cfg,
+                                         settings)
             g_acc = tree_map(lambda a, b: a + b.to(torch.float32), g_acc, g)
             loss_sum = loss_sum + loss
         inv = 1.0 / micro_batches
         loss = loss_sum * inv
         return loss, {"ce": loss}, tree_map(lambda a: a * inv, g_acc)
 
-    def train_step(state, batch):
-        batch = {k: v.to(dev) for k, v in batch.items()}
-        loss, metrics, grads = grads_of(state["params"], batch)
+    def local_step(state, batch):
+        params = gather_tree(state["params"], state_sh["params"])
+        if grad_compress and multi_pod:
+            residual = gather_tree(state["residual"], state_sh["residual"])
+            (loss, metrics), grads, residual, cmx = pod_compressed_grads(
+                lambda p: lm_loss(p, batch, cfg, settings), params, residual, batch, cfg,
+                settings, mesh, method=grad_compress)
+            metrics = {**metrics, **cmx}
+            grads = local_tree(grads, moment_sh)
+            residual = local_tree(residual, state_sh["residual"])
+        else:
+            loss, metrics, grads = grads_of(params, batch)
+            loss, metrics = _mean(loss, mesh, baxes), {k: _mean(v, mesh, baxes)
+                                                       for k, v in metrics.items()}
+            grads = tree_map(lambda g, sh: _reduce_to(g, sh, mesh, baxes, nb), grads,
+                             moment_sh)
+            residual = state.get("residual")
         with torch.no_grad():
-            params, opt_state, om = adamw_step(
-                state["params"], grads,
-                {"m": state["m"], "v": state["v"], "step": state["step"]}, opt)
-            new_state = {"params": params, **opt_state}
+            p = state["params"] if same_layout else local_tree(params, moment_sh)
+            new_p, opt_state, om = adamw_update(
+                p, grads, {"m": state["m"], "v": state["v"], "step": state["step"]}, opt,
+                _sharded_norm(grads, moment_sh, mesh))
+            if not same_layout:
+                new_p = local_tree(gather_tree(new_p, moment_sh), state_sh["params"])
+            new_state = {"params": new_p, **opt_state}
+            if residual is not None:
+                new_state["residual"] = residual
             if donate:
                 tree_map(lambda old, new: old.copy_(new), state, new_state)
                 new_state = state
         return new_state, {"loss": loss, **metrics, **om}
 
-    return train_step
+    def jit_for(batch_specs):
+        batch_sh = batch_shardings(batch_specs, mesh)
+        batch_shapes = _block_shapes(batch_specs, batch_sh)
 
+        def step(state, batch):
+            _check_blocks(state, state_shapes, "the train state")
+            _check_blocks(batch, batch_shapes, "the batch")
+            return local_step(state, {k: v.to(dev) for k, v in batch.items()})
+
+        return step
+
+    def train_step(state, batch):
+        local = local_tree(state, state_sh)
+        new, metrics = jit_for(batch)(local, local_tree(batch, batch_shardings(batch, mesh)))
+        new = gather_tree(new, state_sh)
+        if donate:
+            new = tree_map(lambda old, x: x if x is old else old.copy_(x), state, new)
+        return new, metrics
+
+    return train_step, jit_for, state_sh

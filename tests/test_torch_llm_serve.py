@@ -28,8 +28,11 @@ import repro_torch.configs as tconfigs
 import repro_torch.models as T
 from repro_torch.ckpt import load_checkpoint, restore_tree
 from repro_torch.launch import serve as tserve
+from repro_torch.launch.mesh import make_mesh as tmake_mesh
 from repro_torch.models.convert import from_reference
 from repro_torch.serve import step as tstep
+
+from _torch_mesh import end_the_world_it_started  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 
@@ -68,17 +71,23 @@ def test_step_builders_match_the_references(name):
     if rcfg.family == "encdec":
         frames = rng.standard_normal((B, rcfg.enc_frames, rcfg.d_model)).astype(np.float32)
 
+    tmesh = tmake_mesh((1, 1), ("data", "model"), device="cpu")
     rfn, _ = rstep.build_prefill_step(rcfg, mesh, settings=RST)
-    tfn = tstep.build_prefill_step(tcfg, "cpu", settings=TST)
+    tfn, tjit = tstep.build_prefill_step(tcfg, tmesh, settings=TST)
     want = jax.jit(rfn)(rp, jnp.asarray(toks), None if frames is None else jnp.asarray(frames))
-    close(tfn(tp, torch.from_numpy(toks),
-              None if frames is None else torch.from_numpy(frames)), want, "prefill")
+    targs = [torch.from_numpy(toks)] + ([] if frames is None else [torch.from_numpy(frames)])
+    close(tfn(tp, *targs), want, "prefill")
+    # jit_for's step: the 1x1 mesh's blocks are the whole tensors
+    tstep_fn, nargs = tjit(tp, dict(zip(("tokens", "frames"), targs)))
+    assert nargs == 1 + len(targs)
+    close(tstep_fn(tp, *targs), want, "prefill through jit_for")
 
     rdec, _ = rstep.build_decode_step(rcfg, mesh, settings=RST)
     rcache = R.cache_spec(rcfg, B, S, dtype=jnp.float32, mode="zeros")
     tcache = converted(rcache)
-    keep = tstep.build_decode_step(tcfg, "cpu", settings=TST, donate_cache=False)
-    donate = tstep.build_decode_step(tcfg, "cpu", settings=TST)
+    keep, _ = tstep.build_decode_step(tcfg, tmesh, settings=TST, donate_cache=False)
+    _, donate_for = tstep.build_decode_step(tcfg, tmesh, settings=TST)
+    donate = donate_for(tp, tcache, torch.from_numpy(toks[:, :1]))
     rdec = jax.jit(rdec)
     for i in range(3):
         tok = toks[:, i:i + 1]
@@ -158,7 +167,7 @@ def test_main_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         tserve.main(["--reduced"])
     with pytest.raises(RuntimeError, match="cuda"):
-        tstep.build_decode_step(tconfigs.ARCHS["smollm-135m"], "cuda")
+        tmake_mesh((1, 1), ("data", "model"), device="cuda")   # a builder's mesh
 
 
 def test_reference_checkpoint_loads_into_the_port(tmp_path):

@@ -259,11 +259,16 @@ def test_attention_shard_modes():
                                                     attn_shard=shard))(x, p)
         close(tattn.attention(t(x), tp, tcfg, q_chunk=8, kv_chunk=16, attn_shard=shard),
               want, shard)
-    for shard in ("replicate", "heads"):
-        with pytest.raises(NotImplementedError, match="10b"):
-            tattn.attention(t(x), tp, tcfg, attn_shard=shard, n_model=2)
-    with pytest.raises(NotImplementedError, match="10b"):
-        tattn.flash_attention(t(x), t(x), t(x), causal=True, shard_axes=("data", "model"))
+    # over a model axis the reference's modes are sharding constraints, layout
+    # hints: the port's values are those of one device
+    for shard in ("replicate", "heads", "cp"):
+        one = tattn.attention(t(x), tp, tcfg, q_chunk=8, kv_chunk=16, attn_shard=shard)
+        two = tattn.attention(t(x), tp, tcfg, q_chunk=8, kv_chunk=16, attn_shard=shard,
+                              n_model=2, batch_axes=("pod", "data"))
+        assert torch.equal(one, two), shard
+    q = t(x.reshape(2, 32, 4, rcfg.d_model // 4))
+    assert torch.equal(tattn.flash_attention(q, q, q, causal=True, shard_axes=("data", "model")),
+                       tattn.flash_attention(q, q, q, causal=True))
 
 
 # ---------------------------------------------------------------------------

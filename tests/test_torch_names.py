@@ -25,9 +25,6 @@ GAPS = {
     ("repro.core.schemes._device", "kernel_ops"):
         "the reference's fallback test (None without Pallas); the port has no fallback, by rule",
     ("repro.core.shuffle", "zero_low_bits"): "no caller in the reference; ported with one",
-    # (its partner scatter_topk is not in the reference's __all__)
-    ("repro.core.threshold", "topk_details"): "gradient compression, ROADMAP item 10c",
-    ("repro.train.step", "train_state_shardings"): "needs a mesh, ROADMAP item 10b-ii",
 }
 
 
@@ -51,7 +48,8 @@ def test_the_counterparts_include_this_slice():
     for mod in ("repro.data.tokens", "repro.train.optim", "repro.train.step",
                 "repro.launch.train", "repro.models.costs", "repro.kernels.ref",
                 "repro.core.wavelets", "repro.core.pipeline", "repro.kernels",
-                "repro.serve.step"):
+                "repro.serve.step", "repro.launch.mesh", "repro.train.sharding",
+                "repro.train.grad_compress", "repro.core.threshold"):
         assert mod in names, mod
 
 

@@ -29,6 +29,8 @@ from repro_torch.launch import train as ttrain
 from repro_torch.models.common import tree_leaves
 from repro_torch.train import step as tstep
 
+from _torch_mesh import end_the_world_it_started  # noqa: F401  (autouse)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BASE = ["--arch", "smollm-135m", "--reduced", "--steps", "12", "--batch", "2", "--seq", "32",
         "--ckpt-every", "5", "--log-every", "4"]

@@ -135,13 +135,23 @@ def test_flash_without_grad_takes_the_plain_loops():
 
 
 def test_sharded_attention_still_raises_naming_the_mesh_item():
+    """The reference's sharding hints (``shard_axes``; ``attn_shard``
+    "heads"/"replicate" over a model axis) change no value, forward or
+    backward: the port gathers at use and computes a rank's rows whole."""
     q, k, v, _ = _inputs(1, 16, seed=3)
-    q, k, v = (torch.from_numpy(a) for a in (q, k, v))
-    with pytest.raises(NotImplementedError, match="10b-ii"):
-        tattn.flash_attention(q, k, v, causal=True, shard_axes=("data", "model"))
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out = tattn.flash_attention(q, k, v, causal=True, shard_axes=("data", "model"))
+    plain = tattn.flash_attention(q, k, v, causal=True)
+    assert torch.equal(out, plain)
+    g = torch.autograd.grad(out.sum(), (q, k, v))
+    assert all(torch.equal(a, b) for a, b in zip(g, torch.autograd.grad(plain.sum(), (q, k, v))))
     import repro_torch.configs as tconfigs
+    import repro_torch.models as T
 
     cfg = tconfigs.reduced(tconfigs.ARCHS["smollm-135m"])
-    x = torch.zeros((1, 4, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="10b-ii"):
-        tattn.attention(x, {}, cfg, attn_shard="heads", n_model=2)
+    p = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")["blocks"]["attn"]
+    p = {name: a[0] for name, a in p.items()}
+    x = torch.randn((1, 4, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    for shard in ("heads", "replicate"):
+        assert torch.equal(tattn.attention(x, p, cfg, attn_shard=shard, n_model=2),
+                           tattn.attention(x, p, cfg, attn_shard=shard))

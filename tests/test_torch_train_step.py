@@ -35,12 +35,14 @@ from repro.train import step as rstep
 import repro_torch.configs as tconfigs
 import repro_torch.models as T
 from repro_torch.data.tokens import batch_at
+from repro_torch.launch.mesh import make_mesh as tmake_mesh
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.models.convert import state_from_reference, state_to_reference
 from repro_torch.models.transformer import LanguageModel
 from repro_torch.train import optim as toptim
 from repro_torch.train import step as tstep
 
+from _torch_mesh import end_the_world_it_started  # noqa: F401  (autouse)
 from _torch_train import TST, make_batch, port_value_and_grad
 
 torch.set_num_threads(1)
@@ -51,6 +53,18 @@ RST = R.ModelSettings(q_chunk=16, kv_chunk=16, ce_chunk=32, remat="none",
                       compute_dtype=jnp.float32)
 OPT = roptim.OptConfig(lr=1e-3, warmup_steps=20, total_steps=100)
 STEP_ARCHS = ("smollm-135m", "olmoe-1b-7b")
+
+
+def cpu_step(cfg, **kw):
+    """The port's step on a CPU 1x1 mesh: ``jit_for`` of the batch's
+    shapes, which are every batch's here."""
+    _, jit_for, _ = tstep.build_train_step(cfg, tmake_mesh((1, 1), ("data", "model"),
+                                                           device="cpu"), **kw)
+
+    def step(state, batch):
+        return jit_for(batch)(state, batch)
+
+    return step
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,9 +96,8 @@ def test_one_train_step_matches_the_reference(name, micro_batches):
     before, batch, want, wmet = _reference_step(name, micro_batches)
     tcfg = tconfigs.reduced(tconfigs.ARCHS[name])
     state = state_from_reference(before, device="cpu")
-    fn = tstep.build_train_step(tcfg, "cpu", settings=TST,
-                                opt=toptim.OptConfig(**dataclasses.asdict(OPT)),
-                                donate=False, micro_batches=micro_batches)
+    fn = cpu_step(tcfg, settings=TST, opt=toptim.OptConfig(**dataclasses.asdict(OPT)),
+                  donate=False, micro_batches=micro_batches)
     new, met = fn(state, {k: torch.from_numpy(v) for k, v in batch.items()})
     assert sorted(met) == sorted(wmet)
     np.testing.assert_allclose(met["grad_norm"].item(), wmet["grad_norm"], rtol=GNORM_RTOL)
@@ -114,10 +127,10 @@ def test_donate_updates_the_state_in_place():
              batch_at(DataConfig(vocab=cfg.vocab, batch=2, seq=16), 0).items()}
     fresh = tstep.init_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
     keep = tree_map(torch.clone, fresh)
-    kept, _ = tstep.build_train_step(cfg, "cpu", settings=TST, donate=False)(fresh, batch)
+    kept, _ = cpu_step(cfg, settings=TST, donate=False)(fresh, batch)
     assert all(torch.equal(a, b) for (_, a), (_, b) in zip(tree_leaves(fresh),
                                                           tree_leaves(keep)))
-    donated, met = tstep.build_train_step(cfg, "cpu", settings=TST, donate=True)(fresh, batch)
+    donated, met = cpu_step(cfg, settings=TST, donate=True)(fresh, batch)
     assert donated is fresh and int(fresh["step"]) == 1
     for (_, a), (_, b) in zip(tree_leaves(donated), tree_leaves(kept)):
         assert torch.equal(a, b)
@@ -173,20 +186,42 @@ def test_train_state_specs_are_the_references(name):
 
 
 def test_grad_compress_names_its_roadmap_item():
+    """``grad_compress`` builds: the state gains the error-feedback residual
+    (float32 zeros beside every parameter), and a step without a "pod"
+    axis takes the normal branch and keeps the residual as it was."""
     cfg = tconfigs.reduced(tconfigs.ARCHS["smollm-135m"])
-    with pytest.raises(NotImplementedError, match="10c"):
-        tstep.build_train_step(cfg, "cpu", grad_compress="topk")
-    with pytest.raises(NotImplementedError, match="10c"):
-        tstep.train_state_specs(cfg, grad_compress="topk")
+    specs = tstep.train_state_specs(cfg, grad_compress="topk")
+    assert sorted(specs) == ["m", "params", "residual", "step", "v"]
+    assert [p for p, _ in tree_leaves(specs["residual"])] == \
+        [p for p, _ in tree_leaves(specs["params"])]
+    state = tstep.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                   grad_compress="topk", device="cpu")
+    assert all(a.dtype == torch.float32 and not a.any()
+               for _, a in tree_leaves(state["residual"]))
+    batch = {k: torch.from_numpy(v) for k, v in
+             batch_at(DataConfig(vocab=cfg.vocab, batch=2, seq=16), 0).items()}
+    new, met = cpu_step(cfg, settings=TST, grad_compress="topk", donate=False)(state, batch)
+    assert "grad_compress_ratio" not in met
+    assert all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(tree_leaves(new["residual"]), tree_leaves(state["residual"])))
 
 
 def test_param_dtype_names_its_roadmap_item():
-    """The step keeps float32 parameters: another ``param_dtype`` raises
-    instead of being ignored."""
+    """``param_dtype`` sets the parameters' dtype in the state's specs and
+    shardings, as the reference's does (m and v stay float32)."""
     cfg = tconfigs.reduced(tconfigs.ARCHS["smollm-135m"])
-    with pytest.raises(NotImplementedError, match="10b-ii"):
-        tstep.build_train_step(cfg, "cpu", param_dtype=torch.bfloat16)
-    assert callable(tstep.build_train_step(cfg, "cpu", param_dtype=None))
+    rcfg = rconfigs.reduced(rconfigs.ARCHS["smollm-135m"])
+    mesh = tmake_mesh((1, 1), ("data", "model"), device="cpu")
+    _, _, state_sh = tstep.build_train_step(cfg, mesh, param_dtype=torch.bfloat16)
+    want = rstep.train_state_shardings(rcfg, make_mesh((1, 1), ("data", "model")),
+                                       param_dtype=jnp.bfloat16)
+    want = {tuple(k.key for k in p): tuple(sh.spec)
+            for p, sh in jax.tree_util.tree_flatten_with_path(want)[0]}
+    assert {p: tuple(sh.spec) for p, sh in tree_leaves(state_sh)} == want
+    assert state_sh == tstep.train_state_shardings(cfg, mesh, param_dtype=torch.bfloat16)
+    specs = tstep.train_state_specs(cfg, param_dtype=torch.bfloat16)
+    assert {a.dtype for _, a in tree_leaves(specs["params"])} == {torch.bfloat16}
+    assert {a.dtype for _, a in tree_leaves(specs["m"])} == {torch.float32}
 
 
 def test_state_conversion_checks_its_form():
