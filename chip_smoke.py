@@ -109,9 +109,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  trials' own slack; the header records "host", as the
                  reference's auto does.  Prints the footer's chunk mix, the
                  stage seconds, and the tuner's series (``cz_tune_*``).
-   ``auto_trials`` the tuner's trials of every chunk of the same 512^3 p
-                 (target abs=1e-3, 32^3 blocks, 4 MiB chunks: 128 chunks),
-                 run on the card and on the CPU.  Every kernel call of the
+   ``auto_trials`` the tuner's trials of every 8th chunk of the same
+                 512^3 p (target abs=1e-3, 32^3 blocks, 4 MiB chunks: 16
+                 of its 128 chunks, spread over the field), run on the
+                 card and on the CPU.  Every kernel call of the
                  card's trials is recorded and held to its plain version on
                  the same inputs, bit for bit: the trials' shapes (4-block
                  samples) and eps (zfpx 6.25e-5, lorenzo 1e-3, wavelet w3ai
@@ -363,6 +364,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  processes' boot (spawn to their group) and ms per step.
                  None of the six kernels runs on this path: the launch
                  counts must stay 0.
+   ``dryrun_path`` the dry run and its cost count (``launch.dryrun``,
+                 ``launch.hlo_analysis``), after mesh_path: (a) one step of
+                 the train CLI's (smollm-135m at full width, B 8 x S 64,
+                 float32, its settings and optimizer, a 1x1 mesh,
+                 ``donate=False``) counted by the op counter on the card,
+                 and the same step counted by the dry run on fake cuda
+                 tensors: flops, unfused and fused bytes, score bytes,
+                 transcendentals and collectives equal, and no byte
+                 allocated on the card by the fake run; (b) the dry run's
+                 peak (arguments + temp) against
+                 ``torch.cuda.max_memory_allocated`` of an uncounted run
+                 of the same step (peak stats reset first, less what
+                 was live before but the arguments), within 25%; (c) the
+                 step's bounds from the counted flops (over 67 TFLOP/s,
+                 float32) and bytes (unfused and fused, over 3.35 TB/s)
+                 beside train_path's warm ms per step; (d) ``python -m
+                 repro_torch.launch.dryrun --arch smollm-135m --shape
+                 decode_32k --mesh both`` on the default device, in a
+                 subprocess: exit 0, both cells' JSONs applicable and
+                 without an error, their per-device flops, bytes,
+                 collective bytes and peak printed.  None of the six
+                 kernels runs on this path: the launch counts must stay 0.
    A kernel's launch count on a path is its wrapper's
    ``cz_kernel_calls_total{device="cuda"}`` series from repro_torch.obs,
    which the wrapper adds one to where its launch succeeded and nowhere
@@ -453,6 +476,7 @@ KERNEL_SOURCES = ("wavelet3d", "zfp_transform", "lorenzo")
 ZFPX_PATH_QOIS = ("p",)     # one QoI: its four took 187-238 s, mostly zlib
 LORENZO_PATH_QOIS = ("p",)  # one QoI: its four took 285 s, 95% zlib
 AUTO_TARGET = 1e-3          # auto_path's target, abs=1e-3
+AUTO_TRIALS_STRIDE = 8      # auto_trials checks every 8th chunk of the 128
 # each kernel row's label in cz_kernel_calls_total
 KERNEL_LABELS = {"wavelet3d_forward": "wavelet_forward", "wavelet3d_inverse": "wavelet_inverse",
                  "zfpx_encode": "zfpx_encode", "zfpx_decode": "zfpx_decode",
@@ -972,8 +996,8 @@ def phase_auto_interop(tmp: str, p512) -> dict:
 
 
 def phase_auto_trials(torch, wv, zf, sz, ops, p512) -> dict:
-    """The tuner's trials of every chunk of the 512^3 p, as auto_path makes
-    them, on the card and on the CPU.  Each kernel call of the card's trials
+    """The tuner's trials of every ``AUTO_TRIALS_STRIDE``-th chunk of the
+    512^3 p, as auto_path makes them, on the card and on the CPU.  Each kernel call of the card's trials
     is recorded (inputs and output copied at the call) and held to its plain
     version on the same inputs, bit for bit; each chunk's trials and ranking
     must equal the CPU's."""
@@ -1018,7 +1042,7 @@ def phase_auto_trials(torch, wv, zf, sz, ops, p512) -> dict:
     checked = {name: 0 for name in plain}
     inputs = {name: set() for name in plain}
     winners = {}
-    for lo in range(0, host.shape[0], bpc):
+    for lo in range(0, host.shape[0], bpc * AUTO_TRIALS_STRIDE):
         ci = lo // bpc
         for name in plain:
             setattr(ops, name, recording(name))
@@ -1044,7 +1068,8 @@ def phase_auto_trials(torch, wv, zf, sz, ops, p512) -> dict:
         w = f"{card.winner.scheme} eps={card.winner.eps:g}"
         winners[w] = winners.get(w, 0) + 1
     check(all(checked.values()), f"auto trials: a kernel never ran: {checked}")
-    return {"chunks": host.shape[0] // bpc, "target": str(target),
+    return {"chunks": host.shape[0] // bpc, "chunks_checked": sum(winners.values()),
+            "target": str(target),
             "kernel_calls_bit_exact": checked,
             "kernel_inputs": {k: sorted(v) for k, v in inputs.items()},
             "trials_equal_cpu": True, "winners": winners}
@@ -3411,6 +3436,9 @@ def phase_mesh(torch, tmp: str, sides: list[dict]) -> dict:
     payload = sum(v.numel() * v.element_size() + i.numel() * i.element_size()
                   for _, (v, i) in compressed)
     payload += 4 * sum(n for n in leaf_sizes if n < 4 * MESH_RATIO)
+    check(payload == gc.payload_bytes(init["params"], MESH_METHOD),
+          f"mesh_path: the pod sent {payload} bytes, grad_compress.payload_bytes says "
+          f"{gc.payload_bytes(init['params'], MESH_METHOD)}")
     del state, comp
     mark("topk")
     card_vs_cpu = _topk_checks(torch, gc, flush, compressed, small, cfg)
@@ -3460,6 +3488,136 @@ def phase_mesh(torch, tmp: str, sides: list[dict]) -> dict:
                          "losses": ranks[0]["losses"],
                          "step1_loss_vs_dense_rel": loss_rel, "rtol": MESH_LOSS_RTOL},
             "stages_s": marks, **launched}
+
+
+# dryrun_path: the most the dry run's peak may differ from the card's
+DRYRUN_PEAK_RTOL = 0.25
+
+
+def phase_dryrun(torch, tmp: str, sides: list[dict], train_ms: float) -> dict:
+    """The dry run against the card: the train CLI's step counted on real
+    and on fake cuda tensors, the dry run's peak against the card's, the
+    step's bounds from its counts, and the CLI over decode_32k on both
+    production meshes in a subprocess."""
+    from repro_torch.configs import ARCHS, ShapeConfig
+
+    counted, launched = _launch_counter("dryrun_path", sides)
+    cfg = ARCHS[TRAIN_ARCH]
+    st, opt = _mesh_settings(torch)
+    mesh = _mesh11(torch, "cuda")
+    shape = ShapeConfig("train_cli", TRAIN_S, TRAIN_B, "train")
+
+    # (d) first, in the background: the CLI over decode_32k on both
+    # production meshes (its process spends most of its time importing)
+    out_dir = os.path.join(tmp, "dryrun")
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "smollm-135m",
+            "--shape", "decode_32k", "--mesh", "both", "--out", out_dir]
+    logs = [open(os.path.join(out_dir, name), "w+") for name in ("stdout", "stderr")]
+    t_cli = time.perf_counter()
+    proc = subprocess.Popen(argv, env=env, cwd=ROOT, stdout=logs[0], stderr=logs[1])
+    try:
+        res = _dryrun_in_process(torch, counted, cfg, st, opt, mesh, shape, train_ms)
+        _, wait_s, _ = counted({}, "the CLI", lambda: proc.wait(timeout=300))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for f in logs:
+            f.seek(0)
+        printed = [f.read() for f in logs]
+        for f in logs:
+            f.close()
+    cli_s = time.perf_counter() - t_cli
+    check(proc.returncode == 0, f"dryrun_path: the CLI exited {proc.returncode}: "
+                                f"{printed[0][-2000:]} {printed[1][-2000:]}")
+    cells = {}
+    for mesh_kind, n in (("single", 256), ("multi", 512)):
+        with open(os.path.join(out_dir, f"smollm-135m__decode_32k__{mesh_kind}.json")) as f:
+            cell = json.load(f)
+        check(cell.get("applicable") is True and "error" not in cell
+              and cell["n_devices"] == n and cell["flops_per_device"] > 0,
+              f"dryrun_path: the CLI's {mesh_kind} cell: {cell}")
+        mem = cell["memory"]
+        cells[mesh_kind] = {
+            "seconds": cell["time_lower_s"], "flops_per_device": cell["flops_per_device"],
+            "bytes_per_device": cell["bytes_accessed_per_device"],
+            "fused_bytes_per_device": cell["loop_aware"]["hbm_bytes_fused_per_device"],
+            "collective_bytes_per_device": cell["collective_bytes_per_device"],
+            "peak_bytes": mem["argument_bytes"] + mem["temp_bytes"],
+            "argument_bytes": mem["argument_bytes"]}
+    return {**res, "cli": {"argv": argv[1:], "seconds": cli_s, "waited_s": wait_s,
+                           "lines": printed[0].splitlines(), "cells": cells}, **launched}
+
+
+def _dryrun_in_process(torch, counted, cfg, st, opt, mesh, shape, train_ms: float) -> dict:
+    """dryrun_path (a) to (c), in this process."""
+    import dataclasses
+
+    from repro_torch.data.tokens import DataConfig, batch_at
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import count_ops
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train.step import build_train_step, init_train_state
+
+    # (a) the same step counted on the card and on fake cuda tensors
+    torch.cuda.empty_cache()
+    _, jit_for, _ = build_train_step(cfg, mesh, settings=st, opt=opt, donate=False)
+    data = DataConfig(vocab=cfg.vocab, batch=TRAIN_B, seq=TRAIN_S, seed=0)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in batch_at(data, 0).items()}
+    state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+    step = jit_for(batch)
+    step(state, batch)                                   # warm: cuBLAS and the allocator
+    torch.cuda.synchronize()
+    (_, card), card_s, _ = counted({}, "the counted step", lambda: count_ops(step, state, batch))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    fake, fake_s, _ = counted({}, "the dry run", lambda: dryrun.count_cell(
+        cfg, shape, mesh, st, opt=opt))
+    check(torch.cuda.memory_allocated() == before,
+          "dryrun_path: the fake run allocated on the card")
+    check(card == fake.stats, f"dryrun_path: the card's count {card} differs from the "
+                              f"dry run's {fake.stats}")
+    args = sum(a.numel() * a.element_size() for tree in (state, batch)
+               for _, a in tree_leaves(tree))
+    check(fake.argument_bytes == args,
+          f"dryrun_path: argument bytes {fake.argument_bytes}, the step's inputs {args}")
+
+    # (b) the dry run's peak against the card's, the step uncounted
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = step(state, batch)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    card_peak = torch.cuda.max_memory_allocated() - live + args
+    del out, state, batch
+    ratio = fake.peak_bytes / card_peak
+    check(abs(ratio - 1) <= DRYRUN_PEAK_RTOL,
+          f"dryrun_path: the dry run's peak {fake.peak_bytes} against the card's "
+          f"{card_peak}: {ratio}")
+    print(f"dryrun_path: peak dry run {fake.peak_bytes} B, card {card_peak} B, "
+          f"ratio {ratio}", flush=True)
+
+    # (c) the step's bounds from its counts
+    flops_ms = card.flops / FP32_FLOPS_PER_S * 1e3
+    bytes_ms = card.hbm_bytes / HBM_BYTES_PER_S * 1e3
+    fused_ms = card.hbm_bytes_fused / HBM_BYTES_PER_S * 1e3
+    print(f"dryrun_path: train step {train_ms} ms (train_path, warm); bounds: flops "
+          f"{flops_ms} ms, bytes {bytes_ms} ms (unfused), {fused_ms} ms (fused)", flush=True)
+
+    return {"arch": TRAIN_ARCH, "batch": TRAIN_B, "seq": TRAIN_S,
+            "settings": "the train CLI's: float32, q 32 / kv 64 / ce 64, no remat, lr 1e-3",
+            "counts": dataclasses.asdict(card), "equal_card_and_fake": True,
+            "counted_step_s": card_s, "fake_run_s": fake_s, "fake_count_s": fake.seconds,
+            "step_ms_uncounted": step_ms,
+            "peak": {"dry_run": fake.peak_bytes, "card": card_peak, "ratio": ratio,
+                     "argument_bytes": args, "rtol": DRYRUN_PEAK_RTOL},
+            "bounds": {"train_ms_warm": train_ms, "flops_ms": flops_ms, "bytes_ms": bytes_ms,
+                       "fused_bytes_ms": fused_ms}}
 
 
 def _max_abs_diff(got, want) -> float:
@@ -3696,6 +3854,9 @@ def main() -> int:
         t0 = time.perf_counter()
         mesh_path = phase_mesh(torch, tmp, sides)
         emit({"phase": "mesh_path", "seconds": time.perf_counter() - t0, **mesh_path})
+        t0 = time.perf_counter()
+        dryrun_path = phase_dryrun(torch, tmp, sides, train_path["ms_per_step"]["warm_median"])
+        emit({"phase": "dryrun_path", "seconds": time.perf_counter() - t0, **dryrun_path})
         print(card, flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

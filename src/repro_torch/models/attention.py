@@ -30,7 +30,7 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
-from .common import einsum, rmsnorm, rope
+from .common import einsum, rmsnorm, rope, score_block
 
 __all__ = ["attention", "decode_attention", "flash_attention"]
 
@@ -61,14 +61,17 @@ def _fwd_qchunk(qblk, kg, vg, qi, nk_hi, *, causal, qc, kc, q_offset, scale):
     acc = torch.zeros((B, Hkv, G, qc, hd), dtype=torch.float32, device=dev)
     for ki in range(nk_hi):
         kblk, vblk = kg[:, ki], vg[:, ki]
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kblk).float() * scale
+        with score_block():
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kblk).float() * scale
         if causal:
             s = _mask_block(s, qi, ki, qc, kc, q_offset)
         m_new = torch.maximum(m, s.amax(-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
         l = l * alpha + p.sum(-1)
-        pv = torch.einsum("bhgqk,bkhd->bhgqd", p.to(vblk.dtype), vblk).float()
+        pb = p.to(vblk.dtype)
+        with score_block(pb):
+            pv = torch.einsum("bhgqk,bkhd->bhgqd", pb, vblk).float()
         acc = acc * alpha[..., None] + pv
         m = m_new
     lse = m + torch.log(torch.clamp(l, min=1e-30))
@@ -95,14 +98,17 @@ def _fwd_cp(qg, kg, vg, *, causal, qc, kc, q_offset, scale):
     acc = torch.zeros((B, nq, Hkv, G, qc, hd), dtype=torch.float32, device=dev)
     for ki in range(nk):
         kblk, vblk = kg[:, ki], vg[:, ki]
-        s = torch.einsum("bnqhgd,bkhd->bnhgqk", qg, kblk).float() * scale
+        with score_block():
+            s = torch.einsum("bnqhgd,bkhd->bnhgqk", qg, kblk).float() * scale
         if causal:
             s = _cp_mask(s, nq, qc, kc, ki, q_offset)
         m_new = torch.maximum(m, s.amax(-1))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
         l = l * alpha + p.sum(-1)
-        pv = torch.einsum("bnhgqk,bkhd->bnhgqd", p.to(vblk.dtype), vblk)
+        pb = p.to(vblk.dtype)
+        with score_block(pb):
+            pv = torch.einsum("bnhgqk,bkhd->bnhgqd", pb, vblk)
         acc = acc * alpha[..., None] + pv.float()
         m = m_new
     lse = m + torch.log(torch.clamp(l, min=1e-30))
@@ -164,15 +170,22 @@ def _bwd_cp(q, k, v, out, lse, dout, *, causal, qc, kc, q_offset, scale):
     dv = torch.empty_like(dk)
     for ki in range(nk):
         kblk, vblk = kg[:, ki], vg[:, ki]
-        s = torch.einsum("bnqhgd,bkhd->bnhgqk", qg, kblk).float() * scale
+        with score_block():
+            s = torch.einsum("bnqhgd,bkhd->bnhgqk", qg, kblk).float() * scale
         if causal:
             s = _cp_mask(s, nq, qc, kc, ki, q_offset)
         p = torch.exp(s - lse[..., None])
-        dv[:, ki] = torch.einsum("bnhgqk,bnqhgd->bkhd", p.to(dog.dtype), dog).float()
-        dp = torch.einsum("bnqhgd,bkhd->bnhgqk", dog, vblk).float()
+        pb = p.to(dog.dtype)
+        with score_block(pb):
+            dv[:, ki] = torch.einsum("bnhgqk,bnqhgd->bkhd", pb, dog).float()
+        with score_block():
+            dp = torch.einsum("bnqhgd,bkhd->bnhgqk", dog, vblk).float()
         ds = p * (dp - Drow[..., None])
-        dq_c = torch.einsum("bnhgqk,bkhd->bnqhgd", ds.to(kblk.dtype), kblk)
-        dk[:, ki] = torch.einsum("bnhgqk,bnqhgd->bkhd", ds.to(qg.dtype), qg).float() * scale
+        dsk, dsq = ds.to(kblk.dtype), ds.to(qg.dtype)
+        with score_block(dsk):
+            dq_c = torch.einsum("bnhgqk,bkhd->bnqhgd", dsk, kblk)
+        with score_block(dsq):
+            dk[:, ki] = torch.einsum("bnhgqk,bnqhgd->bkhd", dsq, qg).float() * scale
         dq = dq + dq_c.float() * scale
     return (dq.reshape(B, Sq, Hq, hd).to(q.dtype), dk.reshape(B, Skv, Hkv, hd).to(k.dtype),
             dv.reshape(B, Skv, Hkv, hd).to(v.dtype))
@@ -202,15 +215,22 @@ def _flash_bwd(q, k, v, out, lse, dout, causal, q_chunk, kv_chunk, q_offset, imp
         dq_i = torch.zeros((B, qc, Hkv, G, hd), dtype=torch.float32, device=q.device)
         for ki in range(nk):
             kblk, vblk = kg[:, ki], vg[:, ki]
-            s = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kblk).float() * scale
+            with score_block():
+                s = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kblk).float() * scale
             if causal:
                 s = _mask_block(s, qi, ki, qc, kc, q_offset)
             p = torch.exp(s - lse_i[..., None])                    # (B,Hkv,G,qc,kc)
-            dv_j = torch.einsum("bhgqk,bqhgd->bkhd", p.to(doblk.dtype), doblk)
-            dp = torch.einsum("bqhgd,bkhd->bhgqk", doblk, vblk).float()
+            pb = p.to(doblk.dtype)
+            with score_block(pb):
+                dv_j = torch.einsum("bhgqk,bqhgd->bkhd", pb, doblk)
+            with score_block():
+                dp = torch.einsum("bqhgd,bkhd->bhgqk", doblk, vblk).float()
             ds = p * (dp - D_i[..., None])
-            dq_c = torch.einsum("bhgqk,bkhd->bqhgd", ds.to(kblk.dtype), kblk)
-            dk_j = torch.einsum("bhgqk,bqhgd->bkhd", ds.to(qblk.dtype), qblk)
+            dsk, dsq = ds.to(kblk.dtype), ds.to(qblk.dtype)
+            with score_block(dsk):
+                dq_c = torch.einsum("bhgqk,bkhd->bqhgd", dsk, kblk)
+            with score_block(dsq):
+                dk_j = torch.einsum("bhgqk,bqhgd->bkhd", dsq, qblk)
             dq_i = dq_i + dq_c.float() * scale
             dk[:, ki] += dk_j.float() * scale
             dv[:, ki] += dv_j.float()
@@ -315,10 +335,12 @@ def decode_attention(x, p, cfg, cache, pos: int):
     v[:, at:at + 1] = v_new
     G = Hq // Hkv
     qg = q.reshape(B, 1, Hkv, G, hd)
-    s = einsum("bqhgd,bkhd->bhgqk", qg, k).float() * hd ** -0.5
+    with score_block():
+        s = einsum("bqhgd,bkhd->bhgqk", qg, k).float() * hd ** -0.5
     mask = torch.arange(S, device=x.device)[None, None, None, None, :] <= pos
     s = torch.where(mask, s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype), v)
+    w = torch.softmax(s, dim=-1).to(v.dtype)
+    with score_block(w):
+        o = torch.einsum("bhgqk,bkhd->bqhgd", w, v)
     out = einsum("bsh,hd->bsd", o.reshape(B, 1, Hq * hd), p["wo"])
     return out, {"k": k, "v": v}

@@ -2,6 +2,8 @@
 (port of ``repro.models.common``)."""
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 
 import numpy as np
@@ -10,6 +12,23 @@ import torch.nn.functional as F
 
 __all__ = ["Maker", "rmsnorm", "rope", "sinusoidal_positions", "gelu", "swiglu_act",
            "einsum", "tree_map", "tree_leaves"]
+
+#: Set while an attention product in score space runs (:func:`score_block`):
+#: ``True`` where the product makes a (qc, kc) score block, the block itself
+#: where the product reads one.  It changes no value; the op counter of
+#: :mod:`repro_torch.launch.hlo_analysis` reads it.
+SCORE_BLOCK: contextvars.ContextVar = contextvars.ContextVar("score_block", default=None)
+
+
+@contextlib.contextmanager
+def score_block(operand=None):
+    """Marks the products run inside as score-space: with no ``operand``
+    they make a score block, else they read ``operand``, a score block."""
+    token = SCORE_BLOCK.set(True if operand is None else operand)
+    try:
+        yield
+    finally:
+        SCORE_BLOCK.reset(token)
 
 
 def tree_map(fn, tree, *rest):

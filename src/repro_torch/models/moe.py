@@ -11,7 +11,6 @@ Aux losses (load-balance + router z-loss) are returned for the train loss.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from .common import gelu, swiglu_act
 
@@ -37,6 +36,14 @@ def _expert_ffn(xin, p, cfg):
     return torch.einsum("enf,efd->end", h, p["we2"])
 
 
+def _one_hot(idx, n: int):
+    """``F.one_hot(idx, n).float()`` as one comparison: the same ops on
+    every tensor (``F.one_hot`` reads the indices' range back to the host
+    first, except on fake tensors), so a counted dry run sees the ops the
+    card runs."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).float()
+
+
 def _top_k(probs, k: int):
     """``lax.top_k``: the k largest along the last axis, ties to the lower
     index (a stable descending sort)."""
@@ -60,13 +67,13 @@ def moe_ffn(x, p, cfg):
     top_p, top_e = _top_k(probs, K)                                # (G,g,K)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
 
-    onehot = F.one_hot(top_e, E).float()                          # (G,g,K,E)
+    onehot = _one_hot(top_e, E)                                   # (G,g,K,E)
     # rank of each assignment within its expert (priority: token order, then k)
     flat = onehot.reshape(G, g * K, E)
     rank = torch.cumsum(flat, dim=1) - flat                       # exclusive
     keep = (rank < C) * flat                                      # (G,gK,E)
     rank = torch.where(keep > 0, rank, 0.0)
-    pos_oh = F.one_hot(rank.long(), C).float() * keep[..., None]
+    pos_oh = _one_hot(rank.long(), C) * keep[..., None]
     # (G, gK, E, C) -> fold k back onto tokens
     pos_oh = pos_oh.reshape(G, g, K, E, C)
     combine = (pos_oh * top_p[..., None, None]).sum(2)            # (G,g,E,C)

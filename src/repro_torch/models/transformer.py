@@ -29,7 +29,7 @@ from repro_torch.core.schemes import torch_device
 
 from . import ssm
 from .attention import attention, decode_attention, flash_attention
-from .common import (Maker, einsum, rmsnorm, sinusoidal_position_at,
+from .common import (Maker, einsum, rmsnorm, score_block, sinusoidal_position_at,
                      sinusoidal_positions, tree_leaves, tree_map)
 from .moe import dense_ffn, moe_ffn
 
@@ -537,9 +537,11 @@ def _decode_encdec(x, blocks, cfg, cache, pos):
         xq = torch.einsum("bsd,dh->bsh", rmsnorm(x, bp["lnx"], cfg.norm_eps),
                           bp["xattn"]["wq"]).reshape(B, 1, Hq, hd)
         qg = xq.reshape(B, 1, Hkv, G, hd)
-        s = einsum("bqhgd,bkhd->bhgqk", qg, xk).float() * hd ** -0.5
-        w = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhgqk,bkhd->bqhgd", w.to(xv.dtype), xv)
+        with score_block():
+            s = einsum("bqhgd,bkhd->bhgqk", qg, xk).float() * hd ** -0.5
+        w = torch.softmax(s, dim=-1).to(xv.dtype)
+        with score_block(w):
+            o = torch.einsum("bhgqk,bkhd->bqhgd", w, xv)
         x = x + einsum("bsh,hd->bsd", o.reshape(B, 1, Hq * hd), bp["xattn"]["wo"])
         y = dense_ffn(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp["mlp"], cfg)
         x = x + y

@@ -41,7 +41,7 @@ from repro_torch.models.common import tree_leaves, tree_map
 
 from .optim import _recip, _unzip
 
-__all__ = ["pod_compressed_grads", "topk_compress", "topk_decompress"]
+__all__ = ["pod_compressed_grads", "topk_compress", "topk_decompress", "payload_bytes"]
 
 
 _BLOCK = 1 << 20   # top-k block length (paper-style block-structured selection)
@@ -77,6 +77,30 @@ def topk_decompress(vals: torch.Tensor, idx: torch.Tensor, shape) -> torch.Tenso
     rows = torch.zeros((nb, bl), dtype=torch.float32, device=vals.device)
     rows.scatter_(1, idx.long(), flush(vals) + 0.0)
     return rows.reshape(-1)[:n].reshape(shape)
+
+
+def payload_bytes(grads, method: str = "topk32") -> int:
+    """The bytes one pod sends a step for a tree of grads (or of tensors of
+    their shapes and dtypes), as :func:`pod_compressed_grads` sends them: a
+    tiny leaf whole in its dtype; every other leaf, or each slice along dim
+    0 of a huge one, as each block's ``block // ratio`` float32 values and
+    int32 indices."""
+    ratio = int(method.replace("topk", "") or 32)
+
+    def one(n: int) -> int:
+        bl = min(_BLOCK, n)
+        return 8 * -(-n // bl) * max(1, bl // ratio)
+
+    total = 0
+    for _, g in tree_leaves(grads):
+        n = g.numel()
+        if n < 4 * ratio:
+            total += n * g.element_size()
+        elif n < _SPLIT:
+            total += one(n)
+        else:
+            total += g.shape[0] * one(n // g.shape[0])
+    return total
 
 
 def _pod_gather(x: torch.Tensor, group, n_pods: int) -> list[torch.Tensor]:

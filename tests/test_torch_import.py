@@ -53,7 +53,8 @@ NEW_MODULES = ("repro_torch.obs", "repro_torch.obs.registry", "repro_torch.obs.c
                "repro_torch.kernels.ref", "repro_torch.data", "repro_torch.data.tokens",
                "repro_torch.models.costs", "repro_torch.train", "repro_torch.train.optim",
                "repro_torch.train.step", "repro_torch.launch.train",
-               "repro_torch.launch.train_profile")
+               "repro_torch.launch.train_profile", "repro_torch.launch.dryrun",
+               "repro_torch.launch.hlo_analysis")
 
 
 def test_new_modules_are_in_the_import_check():
