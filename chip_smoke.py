@@ -3492,13 +3492,67 @@ def phase_mesh(torch, tmp: str, sides: list[dict]) -> dict:
 
 # dryrun_path: the most the dry run's peak may differ from the card's
 DRYRUN_PEAK_RTOL = 0.25
+# dryrun_path (e): the cell whose rank 0 runs on the card; what a device
+# holds (an 80 GB H100)
+RANK_ARCH = "qwen3-32b"
+CARD_BYTES = 80e9
 
 
-def phase_dryrun(torch, tmp: str, sides: list[dict], train_ms: float) -> dict:
+def _dryrun_cli(tmp: str, name: str, args: list[str]):
+    """The dry run's CLI in a process of its own (a fake world of its own),
+    its output to files under ``tmp``: (process, out dir, argv, log files)."""
+    out_dir = os.path.join(tmp, name)
+    os.makedirs(out_dir, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out", out_dir]
+    logs = [open(os.path.join(out_dir, n), "w+") for n in ("stdout", "stderr")]
+    return subprocess.Popen(argv, env=env, cwd=ROOT, stdout=logs[0], stderr=logs[1]), \
+        out_dir, argv, logs
+
+
+def _finish(proc, logs) -> list[str]:
+    """Ends ``proc`` if it still runs; its stdout and stderr."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    printed = []
+    for f in logs:
+        f.seek(0)
+        printed.append(f.read())
+        f.close()
+    return printed
+
+
+def start_dryrun_clis(tmp: str) -> dict:
+    """dryrun_path's two CLI processes, started before mesh_path so that
+    their imports (most of their time) run beside it: (d) the CLI over
+    decode_32k on both production meshes, (e) rank 0 of qwen3-32b's
+    decode_32k on the 16x16 mesh, counted and then run on the card."""
+    t0 = time.perf_counter()
+    return {"t0": t0,
+            "d": _dryrun_cli(tmp, "dryrun", [
+                "--arch", "smollm-135m", "--shape", "decode_32k", "--mesh", "both"]),
+            "e": _dryrun_cli(tmp, "dryrun_rank", [
+                "--arch", RANK_ARCH, "--shape", "decode_32k", "--mesh", "single", "--run"])}
+
+
+def stop_dryrun_clis(clis: dict) -> None:
+    """Ends the two processes if they still run (a phase before failed)."""
+    for key in ("d", "e"):
+        proc, _, _, logs = clis[key]
+        if not logs[0].closed:
+            _finish(proc, logs)
+
+
+def phase_dryrun(torch, tmp: str, sides: list[dict], train_ms: float, clis: dict) -> dict:
     """The dry run against the card: the train CLI's step counted on real
     and on fake cuda tensors, the dry run's peak against the card's, the
-    step's bounds from its counts, and the CLI over decode_32k on both
-    production meshes in a subprocess."""
+    step's bounds from its counts, the CLI over decode_32k on both
+    production meshes in a subprocess (d), and in another (e) rank 0 of
+    qwen3-32b's decode_32k on the 16x16 mesh counted and then run on the
+    card: real blocks of its parameters and cache, a 256-rank world on the
+    ``fake`` backend, its peak against the count's.  ``clis`` are (d) and
+    (e), started earlier (:func:`start_dryrun_clis`)."""
     from repro_torch.configs import ARCHS, ShapeConfig
 
     counted, launched = _launch_counter("dryrun_path", sides)
@@ -3507,31 +3561,24 @@ def phase_dryrun(torch, tmp: str, sides: list[dict], train_ms: float) -> dict:
     mesh = _mesh11(torch, "cuda")
     shape = ShapeConfig("train_cli", TRAIN_S, TRAIN_B, "train")
 
-    # (d) first, in the background: the CLI over decode_32k on both
-    # production meshes (its process spends most of its time importing)
-    out_dir = os.path.join(tmp, "dryrun")
-    os.makedirs(out_dir, exist_ok=True)
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "smollm-135m",
-            "--shape", "decode_32k", "--mesh", "both", "--out", out_dir]
-    logs = [open(os.path.join(out_dir, name), "w+") for name in ("stdout", "stderr")]
-    t_cli = time.perf_counter()
-    proc = subprocess.Popen(argv, env=env, cwd=ROOT, stdout=logs[0], stderr=logs[1])
+    t_cli = clis["t0"]
+    proc, out_dir, argv, logs = clis["d"]
+    rank_proc, rank_dir, rank_argv, rank_logs = clis["e"]
     try:
         res = _dryrun_in_process(torch, counted, cfg, st, opt, mesh, shape, train_ms)
         _, wait_s, _ = counted({}, "the CLI", lambda: proc.wait(timeout=300))
+        cli_s = time.perf_counter() - t_cli
+        _, rank_wait_s, _ = counted({}, "the rank's step", lambda: rank_proc.wait(timeout=300))
+        rank_s = time.perf_counter() - t_cli
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-        for f in logs:
-            f.seek(0)
-        printed = [f.read() for f in logs]
-        for f in logs:
-            f.close()
-    cli_s = time.perf_counter() - t_cli
+        printed = _finish(proc, logs)
+        rank_printed = _finish(rank_proc, rank_logs)
     check(proc.returncode == 0, f"dryrun_path: the CLI exited {proc.returncode}: "
                                 f"{printed[0][-2000:]} {printed[1][-2000:]}")
+    check(rank_proc.returncode == 0,
+          f"dryrun_path: the rank's run exited {rank_proc.returncode}: "
+          f"{rank_printed[0][-2000:]} {rank_printed[1][-2000:]}")
+    rank = _rank_run(torch, rank_dir, rank_argv, rank_printed[0], rank_s, rank_wait_s)
     cells = {}
     for mesh_kind, n in (("single", 256), ("multi", 512)):
         with open(os.path.join(out_dir, f"smollm-135m__decode_32k__{mesh_kind}.json")) as f:
@@ -3547,8 +3594,41 @@ def phase_dryrun(torch, tmp: str, sides: list[dict], train_ms: float) -> dict:
             "collective_bytes_per_device": cell["collective_bytes_per_device"],
             "peak_bytes": mem["argument_bytes"] + mem["temp_bytes"],
             "argument_bytes": mem["argument_bytes"]}
+        check(cells[mesh_kind]["peak_bytes"] < CARD_BYTES,
+              f"dryrun_path: smollm-135m decode_32k on the {mesh_kind} mesh peaks at "
+              f"{cells[mesh_kind]['peak_bytes']} B a device, over 80 GB")
     return {**res, "cli": {"argv": argv[1:], "seconds": cli_s, "waited_s": wait_s,
-                           "lines": printed[0].splitlines(), "cells": cells}, **launched}
+                           "lines": printed[0].splitlines(), "cells": cells},
+            "rank_step": rank, **launched}
+
+
+def _rank_run(torch, out_dir: str, argv: list, stdout: str, seconds: float,
+              waited_s: float) -> dict:
+    """(e): the rank's cell, counted and run on the card: its peak within
+    ``DRYRUN_PEAK_RTOL`` of the count's and under the card's memory."""
+    with open(os.path.join(out_dir, f"{RANK_ARCH}__decode_32k__single.json")) as f:
+        cell = json.load(f)
+    check(cell.get("applicable") is True and "error" not in cell and "run" in cell
+          and cell["n_devices"] == 256, f"dryrun_path: the rank's cell: {cell}")
+    run = cell["run"]
+    card_peak, counted_peak = run["max_memory_allocated"], run["counted_peak_bytes"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    ratio = card_peak / counted_peak
+    check(abs(ratio - 1) <= DRYRUN_PEAK_RTOL,
+          f"dryrun_path: {RANK_ARCH} decode_32k rank 0 peaks at {card_peak} B on the card, "
+          f"counted {counted_peak}: {ratio}")
+    check(card_peak < min(total, CARD_BYTES),
+          f"dryrun_path: {RANK_ARCH} decode_32k rank 0 peaks at {card_peak} B, over the "
+          f"card's {total}")
+    print(f"dryrun_path: {RANK_ARCH} decode_32k rank 0 on the card: max_memory_allocated "
+          f"{card_peak} B (counted {counted_peak}, ratio {ratio}), steps {run['seconds']} s, "
+          f"process {seconds} s", flush=True)
+    return {"arch": RANK_ARCH, "shape": "decode_32k", "mesh": "single", "argv": argv[1:],
+            "max_memory_allocated": card_peak, "counted_peak_bytes": counted_peak,
+            "ratio": ratio, "rtol": DRYRUN_PEAK_RTOL, "card_total_memory": total,
+            "argument_bytes": run["argument_bytes"], "step_seconds": run["seconds"],
+            "count_seconds": cell["time_lower_s"], "process_s": seconds,
+            "waited_s": waited_s, "lines": stdout.splitlines()}
 
 
 def _dryrun_in_process(torch, counted, cfg, st, opt, mesh, shape, train_ms: float) -> dict:
@@ -3773,6 +3853,7 @@ def main() -> int:
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     sides = [wkern.LAUNCHES_BY_SIDE, lkern.LAUNCHES_BY_SIDE]
+    dryrun_clis = None
     try:
         t0 = time.perf_counter()
         parity = phase_parity(torch, wv, ops)
@@ -3852,13 +3933,17 @@ def main() -> int:
         train_path = phase_train(torch, sides)
         emit({"phase": "train_path", "seconds": time.perf_counter() - t0, **train_path})
         t0 = time.perf_counter()
+        dryrun_clis = start_dryrun_clis(tmp)
         mesh_path = phase_mesh(torch, tmp, sides)
         emit({"phase": "mesh_path", "seconds": time.perf_counter() - t0, **mesh_path})
         t0 = time.perf_counter()
-        dryrun_path = phase_dryrun(torch, tmp, sides, train_path["ms_per_step"]["warm_median"])
+        dryrun_path = phase_dryrun(torch, tmp, sides, train_path["ms_per_step"]["warm_median"],
+                                   dryrun_clis)
         emit({"phase": "dryrun_path", "seconds": time.perf_counter() - t0, **dryrun_path})
         print(card, flush=True)
     finally:
+        if dryrun_clis is not None:
+            stop_dryrun_clis(dryrun_clis)
         shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's launches on its own path
     wavelet = ("wavelet3d_forward", "wavelet3d_inverse")

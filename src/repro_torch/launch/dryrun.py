@@ -8,8 +8,12 @@ one rank's step once, under ``FakeTensorMode`` and the op counter of
 ranks on torch's ``fake`` backend (one process; every collective returns
 at once).  Nothing is allocated: the state, the batch and every
 intermediate are fake tensors of the ``--device``'s type.  Rank 0's
-counts stand for every device's: the port gathers at use, so the "model"
-ranks compute the same rows (ROADMAP §3).
+counts stand for every device's: the step is partitioned (each rank its
+blocks, its rows and its slice of the KV sequence, one layer's parameters
+gathered at a time), and the ranks are symmetric.  ``--run`` then runs
+rank 0's step for real on the device (:func:`run_cell`: random blocks,
+collectives that return at once, so the values are not the model's) and
+records its seconds and its peak allocation beside the count.
 
 Each cell writes ``<out>/<arch>__<shape>__<mesh>[__tag].json`` with the
 reference's keys in its order.  What stands in for XLA's numbers:
@@ -30,6 +34,7 @@ Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-32b --shape train_4k --mesh single
     python -m repro_torch.launch.dryrun --all [--skip-existing] [--mesh both]
     python -m repro_torch.launch.dryrun --arch smollm-135m --shape decode_32k --device cpu
+    python -m repro_torch.launch.dryrun --arch qwen3-32b --shape decode_32k --mesh single --run
 
 Importing this module starts no process group and sets no environment
 variable.
@@ -58,7 +63,7 @@ from repro_torch.train.sharding import batch_shardings, cache_shardings, param_s
 from repro_torch.train.optim import OptConfig
 from repro_torch.train.step import build_train_step, train_state_specs
 
-__all__ = ["CellCount", "count_cell", "lower_cell", "main"]
+__all__ = ["CellCount", "count_cell", "run_cell", "lower_cell", "main"]
 
 _PARAM_DTYPES = {"f32": None, "bf16": torch.bfloat16}
 
@@ -95,12 +100,44 @@ def _storage_bytes(tree) -> dict[int, int]:
     return out
 
 
-def _blocks(specs, shardings, device):
-    """A tensor of this rank's block shape for every leaf of ``specs``
-    (``meta`` tensors), cut as ``shardings`` cut it."""
+def _blocks(specs, shardings, make):
+    """``make(shape, dtype)`` for every leaf of ``specs`` (``meta``
+    tensors), at this rank's block shape as ``shardings`` cut it."""
     if isinstance(specs, dict):
-        return {k: _blocks(v, shardings[k], device) for k, v in specs.items()}
-    return torch.empty(shardings.shard_shape(specs.shape), dtype=specs.dtype, device=device)
+        return {k: _blocks(v, shardings[k], make) for k, v in specs.items()}
+    return make(shardings.shard_shape(specs.shape), specs.dtype)
+
+
+def _cell_step(cfg, shape, mesh, settings, make, *, sharding, param_dtype, grad_compress,
+               micro, opt):
+    """(this rank's step of the cell, its arguments made by ``make``, the
+    micro-batches): train with ``donate=False``, decode with
+    ``donate_cache=True``, as the reference's dry run builds them."""
+    micro = (micro or (4 if cfg.d_model >= 4096 else 1)) if shape.kind == "train" else 1
+    hybrid = cfg.family == "hybrid"
+    if shape.kind == "train":
+        batch_specs = input_batch_specs(cfg, shape)
+        _, jit_for, state_sh = build_train_step(
+            cfg, mesh, settings=settings, opt=opt, grad_compress=grad_compress,
+            donate=False, micro_batches=micro, sharding_mode=sharding, param_dtype=param_dtype)
+        args = (_blocks(train_state_specs(cfg, grad_compress=grad_compress,
+                                          param_dtype=param_dtype), state_sh, make),
+                _blocks(batch_specs, batch_shardings(batch_specs, mesh), make))
+        return jit_for(batch_specs), args, micro
+    if shape.kind == "prefill":
+        pspecs, batch_specs = param_specs(cfg), input_batch_specs(cfg, shape)
+        _, jit_for = build_prefill_step(cfg, mesh, settings=settings)
+        step, _ = jit_for(pspecs, batch_specs)
+        batch = _blocks(batch_specs, batch_shardings(batch_specs, mesh), make)
+        return step, (_blocks(pspecs, param_shardings(pspecs, mesh, hybrid=hybrid), make),
+                      batch["tokens"], *([batch["frames"]] if "frames" in batch else [])), micro
+    pspecs, dspecs = param_specs(cfg), input_batch_specs(cfg, shape)
+    _, jit_for = build_decode_step(cfg, mesh, settings=settings, donate_cache=True)
+    step = jit_for(pspecs, dspecs["cache"], dspecs["token"])
+    return step, (_blocks(pspecs, param_shardings(pspecs, mesh, hybrid=hybrid), make),
+                  _blocks(dspecs["cache"], cache_shardings(dspecs["cache"], mesh), make),
+                  _blocks(dspecs["token"], batch_shardings(dspecs["token"], mesh), make),
+                  shape.seq_len - 1), micro
 
 
 def count_cell(cfg, shape, mesh, settings: ModelSettings = ModelSettings(), *,
@@ -115,34 +152,11 @@ def count_cell(cfg, shape, mesh, settings: ModelSettings = ModelSettings(), *,
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     dev = torch.device(mesh.device_type)
-    micro = (micro or (4 if cfg.d_model >= 4096 else 1)) if shape.kind == "train" else 1
-    hybrid = cfg.family == "hybrid"
     with FakeTensorMode(allow_non_fake_inputs=True):
-        if shape.kind == "train":
-            batch_specs = input_batch_specs(cfg, shape)
-            _, jit_for, state_sh = build_train_step(
-                cfg, mesh, settings=settings, opt=opt, grad_compress=grad_compress,
-                donate=False, micro_batches=micro, sharding_mode=sharding,
-                param_dtype=param_dtype)
-            step = jit_for(batch_specs)
-            args = (_blocks(train_state_specs(cfg, grad_compress=grad_compress,
-                                              param_dtype=param_dtype), state_sh, dev),
-                    _blocks(batch_specs, batch_shardings(batch_specs, mesh), dev))
-        elif shape.kind == "prefill":
-            pspecs, batch_specs = param_specs(cfg), input_batch_specs(cfg, shape)
-            _, jit_for = build_prefill_step(cfg, mesh, settings=settings)
-            step, _ = jit_for(pspecs, batch_specs)
-            batch = _blocks(batch_specs, batch_shardings(batch_specs, mesh), dev)
-            args = (_blocks(pspecs, param_shardings(pspecs, mesh, hybrid=hybrid), dev),
-                    batch["tokens"], *([batch["frames"]] if "frames" in batch else []))
-        else:
-            pspecs, dspecs = param_specs(cfg), input_batch_specs(cfg, shape)
-            _, jit_for = build_decode_step(cfg, mesh, settings=settings, donate_cache=True)
-            step = jit_for(pspecs, dspecs["cache"], dspecs["token"])
-            args = (_blocks(pspecs, param_shardings(pspecs, mesh, hybrid=hybrid), dev),
-                    _blocks(dspecs["cache"], cache_shardings(dspecs["cache"], mesh), dev),
-                    _blocks(dspecs["token"], batch_shardings(dspecs["token"], mesh), dev),
-                    shape.seq_len - 1)
+        step, args, micro = _cell_step(
+            cfg, shape, mesh, settings,
+            lambda shp, dt: torch.empty(shp, dtype=dt, device=dev), sharding=sharding,
+            param_dtype=param_dtype, grad_compress=grad_compress, micro=micro, opt=opt)
         inputs = _storage_bytes(args)
         counter = OpCounter()
         t0 = time.perf_counter()
@@ -155,6 +169,45 @@ def count_cell(cfg, shape, mesh, settings: ModelSettings = ModelSettings(), *,
                      output_bytes=sum(outputs.values()),
                      alias_bytes=sum(n for k, n in outputs.items() if k in inputs),
                      peak_bytes=argument_bytes + counter.peak_bytes, micro_batches=micro)
+
+
+def run_cell(cfg, shape, mesh, settings: ModelSettings = ModelSettings(), *,
+             sharding: str = "fsdp", param_dtype=None, grad_compress=None, micro: int = 0,
+             opt: OptConfig = OptConfig(), seed: int = 0, steps: int = 2) -> dict:
+    """This rank's step of the cell run for real, ``steps`` times, on the
+    mesh's device (a card): random blocks of the parameters (and state,
+    and cache) from ``seed``, token ids 0.  In a world on the ``fake``
+    backend the collectives return at once and leave their outputs as they
+    were allocated, so the values are not the model's: what the run shows
+    is one rank's memory and time.  Returns each step's seconds
+    (synchronized) and the peak of allocated bytes, the arguments
+    included."""
+    dev = torch.device(mesh.device_type)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def make(shp, dt):
+        if dt.is_floating_point:
+            return torch.randn(shp, generator=gen, device=dev, dtype=dt)
+        return torch.zeros(shp, dtype=dt, device=dev)
+
+    step, args, micro = _cell_step(cfg, shape, mesh, settings, make, sharding=sharding,
+                                   param_dtype=param_dtype, grad_compress=grad_compress,
+                                   micro=micro, opt=opt)
+    cuda = dev.type == "cuda"
+    seconds = []
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        out = step(*args)
+        if cuda:
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        del out
+    return {"seconds": seconds, "micro_batches": micro,
+            "argument_bytes": sum(_storage_bytes(args).values()),
+            "max_memory_allocated": torch.cuda.max_memory_allocated() if cuda else None}
 
 
 def _settings(args) -> ModelSettings:
@@ -191,9 +244,10 @@ def lower_cell(arch_name: str, shape_name: str, mesh_kind: str, args):
     _start_fake_world(math.prod((2, 16, 16) if multi else (16, 16)))
     try:
         mesh = make_production_mesh(multi_pod=multi, device=args.device)
-        c = count_cell(cfg, shape, mesh, st, sharding=args.sharding,
-                       param_dtype=_PARAM_DTYPES[args.param_dtype],
-                       grad_compress=args.grad_compress or None, micro=args.micro)
+        kw = dict(sharding=args.sharding, param_dtype=_PARAM_DTYPES[args.param_dtype],
+                  grad_compress=args.grad_compress or None, micro=args.micro)
+        c = count_cell(cfg, shape, mesh, st, **kw)
+        run = run_cell(cfg, shape, mesh, st, **kw) if args.run else None
         n_devices = mesh.size()
     finally:
         dist.destroy_process_group()
@@ -245,12 +299,20 @@ def lower_cell(arch_name: str, shape_name: str, mesh_kind: str, args):
         "seq_len": shape.seq_len,
         "global_batch": shape.global_batch,
     }
+    if run is not None:
+        result["run"] = {**run, "counted_peak_bytes": c.peak_bytes}
     # the reference's prove-it-fits line, from the counted run
     print(f"  memory_analysis: arg={c.argument_bytes/2**30:.3f}GiB "
           f"temp={temp/2**30:.3f}GiB "
           f"out={c.output_bytes/2**30:.3f}GiB per device")
     print(f"  cost_analysis: flops={la.flops:.3e} "
           f"bytes={la.hbm_bytes:.3e} per device")
+    if run is not None:
+        peak = run["max_memory_allocated"]
+        print(f"  run: rank 0 on {args.device}: "
+              + " ".join(f"{t:.3f}s" for t in run["seconds"])
+              + (f" peak={peak / 2**30:.3f}GiB (counted {c.peak_bytes / 2**30:.3f}GiB)"
+                 if peak is not None else ""))
     return result
 
 
@@ -280,7 +342,11 @@ def main(argv=None):
                     help="e.g. topk32 — cross-pod EF-compressed reduction (multi mesh)")
     ap.add_argument("--device", default="cuda",
                     help="the device type of the fake tensors (default: the card); "
-                         "nothing is allocated on it")
+                         "nothing is allocated on it but with --run")
+    ap.add_argument("--run", action="store_true",
+                    help="also run rank 0's step for real on --device (random blocks; "
+                         "the fake world's collectives return at once): its seconds "
+                         "and peak allocation")
     args = ap.parse_args(argv)
     torch_device(args.device)
 

@@ -304,8 +304,8 @@ def attention(x, p, cfg, *, causal=True, impl="masked", q_chunk=256,
     reference does on any mesh.  ``"replicate"`` and ``"heads"`` (and
     ``"cp"``'s ``shard_axes``) with ``n_model > 1`` are the reference's
     sharding constraints on q/k/v over ``batch_axes`` and "model": layout
-    hints, which change no value.  The port gathers the parameters at use
-    and computes a rank's rows whole, so they do nothing here."""
+    hints, which change no value.  The port gathers one layer's parameters
+    at a time and computes a rank's rows, so they do nothing here."""
     B, S, D = x.shape
     use_rope = cfg.family != "encdec"
     positions = torch.arange(S, device=x.device)[None, :]
@@ -317,30 +317,57 @@ def attention(x, p, cfg, *, causal=True, impl="masked", q_chunk=256,
     return torch.einsum("bsh,hd->bsd", o.reshape(B, S, -1), p["wo"])
 
 
-def decode_attention(x, p, cfg, cache, pos: int):
+def softmax_attend(s, v, part=None):
+    """``softmax(s) @ v``: scores ``s`` (b, h, g, q, k) float32 and values
+    ``v`` (b, k, h, d) -> (b, q, h, g, d) in ``v``'s dtype.  With ``part``
+    the k axis is this rank's slice of the sequence: the local max, sum and
+    unnormalised output are merged over the "model" ranks (an all-reduce
+    MAX, then one SUM; the log-sum-exp merge).  A rank whose slice lies
+    wholly past the position has every score at the finite ``NEG_INF``, so
+    its scale ``exp(m - M)`` is exactly 0 and it adds nothing (no NaN)."""
+    if part is None:
+        w = torch.softmax(s, dim=-1).to(v.dtype)
+        with score_block(w):
+            return torch.einsum("bhgqk,bkhd->bqhgd", w, v)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    w = e.to(v.dtype)
+    with score_block(w):
+        o = torch.einsum("bhgqk,bkhd->bhgqd", w, v).float()
+    c = torch.exp(m - part.kv_reduce(m.clone(), "max"))
+    tot = part.kv_reduce(torch.cat([o * c, e.sum(-1, keepdim=True) * c], dim=-1), "sum")
+    o = tot[..., :-1] / tot[..., -1:]
+    return o.permute(0, 3, 1, 2, 4).to(v.dtype)
+
+
+def decode_attention(x, p, cfg, cache, pos: int, part=None):
     """Single-token decode. x: (B,1,D); cache: dict(k,v) (B,S,Hkv,hd).
 
     The new KV is written into ``cache`` in place at ``pos``, clamped into
     [0, S-1] as ``lax.dynamic_update_slice_in_dim`` clamps it; attention
-    masks positions > ``pos`` (unclamped).  Returns (out, cache)."""
+    masks positions > ``pos`` (unclamped).  Returns (out, cache).  With
+    ``part`` (a rank's part of a serve step on a mesh) ``cache`` is this
+    rank's slice of the sequence: the rank whose slice holds the position
+    writes the new KV, and the ranks' partial softmaxes are merged
+    (:func:`softmax_attend`)."""
     B, _, D = x.shape
     Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     S = cache["k"].shape[1]
+    start, n = (0, 1) if part is None else part.kv_slice("k", S)
     use_rope = cfg.family != "encdec"
     positions = torch.full((B, 1), pos, device=x.device)
     q, k_new, v_new = _project_qkv(x, p, cfg, positions, use_rope)
-    at = min(max(pos, 0), S - 1)
+    at = min(max(pos, 0), S * n - 1) - start
     k, v = cache["k"], cache["v"]
-    k[:, at:at + 1] = k_new
-    v[:, at:at + 1] = v_new
+    if 0 <= at < S:
+        k[:, at:at + 1] = k_new
+        v[:, at:at + 1] = v_new
     G = Hq // Hkv
     qg = q.reshape(B, 1, Hkv, G, hd)
     with score_block():
         s = einsum("bqhgd,bkhd->bhgqk", qg, k).float() * hd ** -0.5
-    mask = torch.arange(S, device=x.device)[None, None, None, None, :] <= pos
+    mask = start + torch.arange(S, device=x.device)[None, None, None, None, :] <= pos
     s = torch.where(mask, s, NEG_INF)
-    w = torch.softmax(s, dim=-1).to(v.dtype)
-    with score_block(w):
-        o = torch.einsum("bhgqk,bkhd->bqhgd", w, v)
+    o = softmax_attend(s, v, part if n > 1 else None)
     out = einsum("bsh,hd->bsd", o.reshape(B, 1, Hq * hd), p["wo"])
     return out, {"k": k, "v": v}

@@ -12,6 +12,14 @@ Serving updates the decode cache in place: ``decode_step`` writes each
 layer's new KV row and recurrent state into the cache's tensors and
 returns them, as the reference's serve step does with a donated cache.
 Each cache leaf keeps its dtype.
+
+The layer loops take one layer's parameters at a time from a layer source
+(:class:`_Layers`), in the compute dtype.  A leaf is a whole stacked
+tensor, or on a mesh this rank's block (``train.sharding.Block``): the
+source gathers layer i's slice whole inside the layer (inside its
+checkpoint, so a remat backward gathers it again), and a serve step's
+``part`` (``train.sharding.Partition``) joins the ranks' rows and KV
+slices.
 """
 from __future__ import annotations
 
@@ -28,7 +36,7 @@ from repro_torch import DEFAULT_DEVICE
 from repro_torch.core.schemes import torch_device
 
 from . import ssm
-from .attention import attention, decode_attention, flash_attention
+from .attention import attention, decode_attention, flash_attention, softmax_attend
 from .common import (Maker, einsum, rmsnorm, score_block, sinusoidal_position_at,
                      sinusoidal_positions, tree_leaves, tree_map)
 from .moe import dense_ffn, moe_ffn
@@ -48,8 +56,8 @@ class ModelSettings:
     rwkv_chunk: int = 0             # 0 = sequential loop; >0 = chunked WKV
     attn_shard: str = "auto"        # auto | replicate | heads | cp
     # distribution-aware fields: the reference's sharding constraints over a
-    # mesh, layout hints that change no value; the port gathers at use and
-    # computes a rank's rows whole, so they do nothing here
+    # mesh, layout hints that change no value; the port gathers one layer's
+    # parameters at a time and computes a rank's rows, so they do nothing
     act_shard: str = "seq"          # none | seq | hidden — layer-boundary
     batch_axes: tuple = ("data",)   # mesh axes sharding the batch dim
     n_model: int = 1                # "model" axis size (1 = no constraint)
@@ -211,13 +219,35 @@ def count_params(cfg, active_only: bool = False) -> int:
     return int(total)
 
 
-def _layer(tree, i):
-    """The i-th slice of every stacked leaf."""
-    return tree_map(lambda a: a[i], tree)
+def _whole(leaf):
+    """A parameter whole: the tensor itself, or a rank's block gathered."""
+    return leaf if isinstance(leaf, torch.Tensor) else leaf.whole()
 
 
-def _n_stacked(tree) -> int:
-    return next(tree_leaves(tree))[1].shape[0]
+class _Layers:
+    """The layer source of a stacked parameter tree: ``layers[i]`` is layer
+    i's parameters whole, cast to ``dtype``.  On whole tensors that is the
+    i-th slice; on a mesh it gathers slice i of each leaf's block (no stack
+    dim is split, so it is layer i's block).  ``substacks`` (a hybrid
+    period's "mamba", "mlp" and "moe") come out as sources of their own:
+    one sub-layer is gathered at a time."""
+
+    def __init__(self, tree, dtype, substacks=()):
+        self.tree, self.dtype, self.substacks = tree, dtype, substacks
+
+    def __len__(self) -> int:
+        return next(tree_leaves(self.tree))[1].shape[0]
+
+    def __getitem__(self, i):
+        def one(leaf):
+            return _whole(leaf[i]).to(self.dtype)
+
+        return {k: _Layers(tree_map(lambda a: a[i], v), self.dtype) if k in self.substacks
+                else tree_map(one, v) for k, v in self.tree.items()}
+
+
+def _layers(tree, cfg, dtype) -> _Layers:
+    return _Layers(tree, dtype, ("mamba", "mlp", "moe") if cfg.family == "hybrid" else ())
 
 
 # ---------------------------------------------------------------------------
@@ -229,9 +259,23 @@ def _zero_aux(device):
     return {"load_balance": z, "router_z": z, "drop_fraction": z}
 
 
-def _ffn_or_moe(x, bp, cfg, moe_key="moe"):
-    if moe_key in bp:
-        return moe_ffn(x, bp[moe_key], cfg)
+def _moe(x, p, cfg, part=None):
+    """``moe_ffn`` with the whole batch's groups: a rank of a serve step
+    whose rows do not hold whole groups of ``min(moe_group, B S)`` tokens
+    (decode's few rows) gathers the rows, computes the MoE on the whole
+    batch and keeps its own, so that the capacity is the reference's."""
+    if part is None or part.n_rows == 1:
+        return moe_ffn(x, p, cfg)
+    B, S, _ = x.shape
+    if (B * S) % min(cfg.moe_group, B * S * part.n_rows) == 0:
+        return moe_ffn(x, p, cfg)
+    y, aux = moe_ffn(part.all_rows(x), p, cfg)
+    return part.own_rows(y), aux
+
+
+def _ffn_or_moe(x, bp, cfg, part=None):
+    if "moe" in bp:
+        return _moe(x, bp["moe"], cfg, part)
     return dense_ffn(x, bp["mlp"], cfg), _zero_aux(x.device)
 
 
@@ -242,14 +286,14 @@ def _attention(x, p, cfg, st, causal=True, impl=None):
                      n_model=st.n_model)
 
 
-def _decoder_body(x, bp, cfg, st: ModelSettings):
+def _decoder_body(x, bp, cfg, st: ModelSettings, part=None):
     """One dense/moe decoder layer; returns (x, aux)."""
     x = x + _attention(rmsnorm(x, bp["ln1"], cfg.norm_eps), bp["attn"], cfg, st)
-    y, aux = _ffn_or_moe(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp, cfg)
+    y, aux = _ffn_or_moe(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp, cfg, part)
     return x + y, aux
 
 
-def _rwkv_body(x, bp, cfg, st):
+def _rwkv_body(x, bp, cfg, st, part=None):
     xin = rmsnorm(x, bp["ln1"], cfg.norm_eps)
     if st.rwkv_chunk > 0 and x.shape[1] % st.rwkv_chunk == 0:
         h, _ = ssm.rwkv6_timemix_chunked(xin, bp["tm"], cfg, chunk=st.rwkv_chunk)
@@ -260,12 +304,13 @@ def _rwkv_body(x, bp, cfg, st):
     return x + y, _zero_aux(x.device)
 
 
-def _hybrid_period_body(x, bp, cfg, st):
+def _hybrid_period_body(x, bp, cfg, st, part=None):
     """One jamba period: attn_period sublayers (mamba x (p-1), attn x 1 at
     ``attn_period // 2``), the FFN MoE where ``i % moe_period == 1``.  With
     remat, each mamba mixer is also checkpointed on its own, as the
     reference does: its time loop keeps every step's values for the
-    backward otherwise."""
+    backward otherwise.  ``bp``'s "mamba", "mlp" and "moe" are layer
+    sources: one sub-layer's parameters whole at a time."""
     P_at = cfg.attn_period
     attn_pos = P_at // 2
     aux_acc = _zero_aux(x.device)
@@ -280,18 +325,16 @@ def _hybrid_period_body(x, bp, cfg, st):
         if i == attn_pos:
             h = _attention(rmsnorm(x, bp["attn_ln"], cfg.norm_eps), bp["attn"], cfg, st)
         else:
-            h = mamba_fn(rmsnorm(x, bp["mamba_ln"][mi], cfg.norm_eps),
-                         _layer(bp["mamba"], mi))
+            h = mamba_fn(rmsnorm(x, bp["mamba_ln"][mi], cfg.norm_eps), bp["mamba"][mi])
             mi += 1
         x = x + h
         if i % cfg.moe_period == 1:
-            y, aux = moe_ffn(rmsnorm(x, bp["moe_ln"][oi], cfg.norm_eps),
-                             _layer(bp["moe"], oi), cfg)
+            y, aux = _moe(rmsnorm(x, bp["moe_ln"][oi], cfg.norm_eps), bp["moe"][oi], cfg,
+                          part)
             aux_acc = {k: aux_acc[k] + aux[k] for k in aux_acc}
             oi += 1
         else:
-            y = dense_ffn(rmsnorm(x, bp["mlp_ln"][di], cfg.norm_eps),
-                          _layer(bp["mlp"], di), cfg)
+            y = dense_ffn(rmsnorm(x, bp["mlp_ln"][di], cfg.norm_eps), bp["mlp"][di], cfg)
             di += 1
         x = x + y
     return x, aux_acc
@@ -349,45 +392,45 @@ def _remat(body, remat: str):
     raise ValueError(f"unknown remat {remat!r}")
 
 
-def _scan_blocks(x, blocks, body, st: ModelSettings):
-    """Run ``body`` over the stacked layers, each checkpointed as
-    ``st.remat`` says; the aux values are averaged over layers."""
-    body = _remat(body, st.remat)
+def _scan_blocks(x, layers: _Layers, body, st: ModelSettings):
+    """Run ``body`` over the layers, each checkpointed as ``st.remat`` says
+    with its parameters taken from ``layers`` inside the checkpoint (a
+    remat backward takes them again, rather than saving them); the aux
+    values are averaged over layers."""
+    run = _remat(lambda a, i: body(a, layers[i]), st.remat)
     auxs = []
-    for i in range(_n_stacked(blocks)):
-        x, aux = body(x, _layer(blocks, i))
+    for i in range(len(layers)):
+        x, aux = run(x, i)
         auxs.append(aux)
     return x, {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
 
 
-def _cast_blocks(blocks, dtype):
-    return tree_map(lambda a: a.to(dtype), blocks)
-
-
-def forward_hidden(params, tokens, cfg, st: ModelSettings, enc_inputs=None):
+def forward_hidden(params, tokens, cfg, st: ModelSettings, enc_inputs=None, part=None,
+                   embed=None):
     """tokens (B,S) int -> (hidden (B,S,D), aux).  For encdec, enc_inputs
-    is the stubbed frame-embedding tensor (B, frames, D)."""
+    is the stubbed frame-embedding tensor (B, frames, D).  ``embed`` is the
+    whole embedding where the caller has it already (a tied head)."""
     cdt = st.compute_dtype
-    x = params["embed"][tokens.long()].to(cdt)
+    x = (_whole(params["embed"]) if embed is None else embed)[tokens.long()].to(cdt)
     dev = x.device
     fam = cfg.family
     if fam == "encdec":
         e = enc_inputs.to(cdt) + sinusoidal_positions(
             enc_inputs.shape[1], cfg.d_model, device=dev).to(cdt)
-        e, _ = _scan_blocks(e, _cast_blocks(params["blocks"]["enc"], cdt),
+        e, _ = _scan_blocks(e, _layers(params["blocks"]["enc"], cfg, cdt),
                             lambda a, bp: _enc_body(a, bp, cfg, st), st)
-        enc_out = rmsnorm(e, params["blocks"]["enc_norm"].to(cdt), cfg.norm_eps)
+        enc_out = rmsnorm(e, _whole(params["blocks"]["enc_norm"]).to(cdt), cfg.norm_eps)
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model, device=dev).to(cdt)
-        h, aux = _scan_blocks(x, _cast_blocks(params["blocks"]["dec"], cdt),
+        h, aux = _scan_blocks(x, _layers(params["blocks"]["dec"], cfg, cdt),
                               lambda a, bp: _dec_body(a, enc_out, bp, cfg, st), st)
     else:
         body = {
             "dense": _decoder_body, "vlm": _decoder_body, "moe": _decoder_body,
             "ssm": _rwkv_body, "hybrid": _hybrid_period_body,
         }[fam]
-        h, aux = _scan_blocks(x, _cast_blocks(params["blocks"], cdt),
-                              lambda a, bp: body(a, bp, cfg, st), st)
-    return rmsnorm(h, params["final_norm"].to(cdt), cfg.norm_eps), aux
+        h, aux = _scan_blocks(x, _layers(params["blocks"], cfg, cdt),
+                              lambda a, bp: body(a, bp, cfg, st, part), st)
+    return rmsnorm(h, _whole(params["final_norm"]).to(cdt), cfg.norm_eps), aux
 
 
 def _chunked_ce(h, labels, head, chunk):
@@ -405,19 +448,29 @@ def _chunked_ce(h, labels, head, chunk):
     return tot / (B * S)
 
 
-def _head(params, cfg, dtype):
+def _tied(params, cfg):
+    """The whole embedding where the head is tied to it (gathered once for
+    both uses), else None."""
+    return _whole(params["embed"]) if cfg.tie_embeddings else None
+
+
+def _head(params, cfg, dtype, tied):
+    """The LM head in ``dtype``: ``tied`` (from :func:`_tied`) transposed, or
+    ``lm_head`` gathered."""
     if cfg.tie_embeddings:
-        return params["embed"].to(dtype).T
-    return params["lm_head"].to(dtype)
+        return tied.to(dtype).T
+    return _whole(params["lm_head"]).to(dtype)
 
 
 def lm_loss(params, batch, cfg, st: ModelSettings = ModelSettings()):
     """batch: dict(tokens (B,S), labels (B,S) [, frames (B,F,D)]) ->
     (loss, {"ce", "load_balance", "router_z", "drop_fraction"}), 0-d
-    tensors; differentiable in the parameters that require a grad."""
+    tensors; differentiable in the parameters that require a grad (or, on
+    a mesh, in the anchors of their ``TrainBlock`` leaves)."""
+    tied = _tied(params, cfg)
     h, aux = forward_hidden(params, batch["tokens"], cfg, st,
-                            enc_inputs=batch.get("frames"))
-    ce = _chunked_ce(h, batch["labels"], _head(params, cfg, st.compute_dtype),
+                            enc_inputs=batch.get("frames"), embed=tied)
+    ce = _chunked_ce(h, batch["labels"], _head(params, cfg, st.compute_dtype, tied),
                      st.ce_chunk)
     loss = ce + 0.01 * aux["load_balance"] + 0.001 * aux["router_z"]
     return loss, {"ce": ce, **aux}
@@ -467,117 +520,138 @@ def _kv(cache, i):
     return {"k": cache["k"][i], "v": cache["v"][i]}
 
 
-def _decode_dense(x, blocks, cfg, cache, pos):
-    for i in range(_n_stacked(blocks)):
-        bp = _layer(blocks, i)
+def _state(part, cache, name, idx):
+    """One layer's recurrent state of cache leaf ``name`` at ``idx`` (a
+    tuple of stack indices): the tensor to update in place, and the state
+    whole (on a mesh gathered over "model"; this rank's rows)."""
+    block = cache[name][idx]
+    return block, (block if part is None else part.state(name, block, len(idx)))
+
+
+def _store(part, name, block, new, lead: int) -> None:
+    block.copy_(new if part is None else part.keep(name, new, lead))
+
+
+def _decode_dense(x, layers, cfg, cache, pos, part=None):
+    for i in range(len(layers)):
+        bp = layers[i]
         h, _ = decode_attention(rmsnorm(x, bp["ln1"], cfg.norm_eps), bp["attn"],
-                                cfg, _kv(cache, i), pos)
+                                cfg, _kv(cache, i), pos, part)
         x = x + h
-        y, _ = _ffn_or_moe(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp, cfg)
+        y, _ = _ffn_or_moe(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp, cfg, part)
         x = x + y
     return x
 
 
-def _decode_rwkv(x, blocks, cfg, cache):
-    for i in range(_n_stacked(blocks)):
-        bp = _layer(blocks, i)
+def _decode_rwkv(x, layers, cfg, cache, part=None):
+    for i in range(len(layers)):
+        bp = layers[i]
+        (wkv, s), (xtm, tm), (xcm, cm) = (_state(part, cache, n, (i,))
+                                          for n in ("wkv", "x_tm", "x_cm"))
         h, (s2, xtm2) = ssm.rwkv6_decode(rmsnorm(x, bp["ln1"], cfg.norm_eps),
-                                         bp["tm"], cfg, cache["wkv"][i], cache["x_tm"][i])
+                                         bp["tm"], cfg, s, tm)
         x = x + h
         y, xcm2 = ssm.rwkv6_channelmix(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp["cm"],
-                                       cfg, cache["x_cm"][i])
+                                       cfg, cm)
         x = x + y
-        cache["wkv"][i].copy_(s2)
-        cache["x_tm"][i].copy_(xtm2)
-        cache["x_cm"][i].copy_(xcm2)
+        _store(part, "wkv", wkv, s2, 1)
+        _store(part, "x_tm", xtm, xtm2, 1)
+        _store(part, "x_cm", xcm, xcm2, 1)
     return x
 
 
-def _decode_hybrid(x, blocks, cfg, cache, pos):
+def _decode_hybrid(x, layers, cfg, cache, pos, part=None):
     P_at = cfg.attn_period
     attn_pos = P_at // 2
-    for pi in range(_n_stacked(blocks)):
-        bp = _layer(blocks, pi)
+    for pi in range(len(layers)):
+        bp = layers[pi]
         mi = di = oi = 0
         for i in range(P_at):
             if i == attn_pos:
                 h, _ = decode_attention(rmsnorm(x, bp["attn_ln"], cfg.norm_eps),
-                                        bp["attn"], cfg, _kv(cache, pi), pos)
+                                        bp["attn"], cfg, _kv(cache, pi), pos, part)
             else:
-                sst, cst = cache["ssm"][pi, mi], cache["conv"][pi, mi]
+                (sblk, sst), (cblk, cst) = (_state(part, cache, n, (pi, mi))
+                                            for n in ("ssm", "conv"))
                 h, (s2, c2) = ssm.mamba_decode(rmsnorm(x, bp["mamba_ln"][mi], cfg.norm_eps),
-                                               _layer(bp["mamba"], mi), cfg, sst, cst)
-                sst.copy_(s2)
-                cst.copy_(c2)
+                                               bp["mamba"][mi], cfg, sst, cst)
+                _store(part, "ssm", sblk, s2, 2)
+                _store(part, "conv", cblk, c2, 2)
                 mi += 1
             x = x + h
             if i % cfg.moe_period == 1:
-                y, _ = moe_ffn(rmsnorm(x, bp["moe_ln"][oi], cfg.norm_eps),
-                               _layer(bp["moe"], oi), cfg)
+                y, _ = _moe(rmsnorm(x, bp["moe_ln"][oi], cfg.norm_eps), bp["moe"][oi], cfg,
+                            part)
                 oi += 1
             else:
-                y = dense_ffn(rmsnorm(x, bp["mlp_ln"][di], cfg.norm_eps),
-                              _layer(bp["mlp"], di), cfg)
+                y = dense_ffn(rmsnorm(x, bp["mlp_ln"][di], cfg.norm_eps), bp["mlp"][di], cfg)
                 di += 1
             x = x + y
     return x
 
 
-def _decode_encdec(x, blocks, cfg, cache, pos):
+def _decode_encdec(x, layers, cfg, cache, pos, part=None):
     Hq, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     B = x.shape[0]
     G = Hq // Hkv
-    for i in range(_n_stacked(blocks)):
-        bp = _layer(blocks, i)
+    for i in range(len(layers)):
+        bp = layers[i]
         h, _ = decode_attention(rmsnorm(x, bp["ln1"], cfg.norm_eps), bp["attn"],
-                                cfg, _kv(cache, i), pos)
+                                cfg, _kv(cache, i), pos, part)
         x = x + h
-        # cross-attention against precomputed encoder KV
+        # cross-attention against precomputed encoder KV (on a mesh this
+        # rank's slice of the frames, merged over "model")
         xk, xv = cache["xk"][i], cache["xv"][i]
         xq = torch.einsum("bsd,dh->bsh", rmsnorm(x, bp["lnx"], cfg.norm_eps),
                           bp["xattn"]["wq"]).reshape(B, 1, Hq, hd)
         qg = xq.reshape(B, 1, Hkv, G, hd)
         with score_block():
             s = einsum("bqhgd,bkhd->bhgqk", qg, xk).float() * hd ** -0.5
-        w = torch.softmax(s, dim=-1).to(xv.dtype)
-        with score_block(w):
-            o = torch.einsum("bhgqk,bkhd->bqhgd", w, xv)
+        split = part is not None and part.kv_slice("xk", xk.shape[1])[1] > 1
+        o = softmax_attend(s, xv, part if split else None)
         x = x + einsum("bsh,hd->bsd", o.reshape(B, 1, Hq * hd), bp["xattn"]["wo"])
         y = dense_ffn(rmsnorm(x, bp["ln2"], cfg.norm_eps), bp["mlp"], cfg)
         x = x + y
     return x
 
 
-def decode_step(params, cache, token, pos, cfg, st: ModelSettings = ModelSettings()):
+def decode_step(params, cache, token, pos, cfg, st: ModelSettings = ModelSettings(),
+                part=None):
     """token (B,1) int, pos int -> (logits (B,1,V) f32, cache).  The cache's
-    tensors are updated in place and returned."""
+    tensors are updated in place and returned.  On a mesh (``part``, a
+    ``train.sharding.Partition``) ``params`` are this rank's blocks,
+    ``cache`` its blocks and ``token`` its rows: the logits are its rows'."""
     pos = int(pos)
     cdt = st.compute_dtype
-    x = params["embed"][token.long()].to(cdt)
+    tied = _tied(params, cfg)
+    x = (_whole(params["embed"]) if tied is None else tied)[token.long()].to(cdt)
     fam = cfg.family
-    blocks = _cast_blocks(params["blocks"] if fam != "encdec"
-                          else params["blocks"]["dec"], cdt)
+    layers = _layers(params["blocks"] if fam != "encdec" else params["blocks"]["dec"], cfg,
+                     cdt)
     if fam in ("dense", "vlm", "moe"):
-        x = _decode_dense(x, blocks, cfg, cache, pos)
+        x = _decode_dense(x, layers, cfg, cache, pos, part)
     elif fam == "ssm":
-        x = _decode_rwkv(x, blocks, cfg, cache)   # positions implicit in recurrence
+        x = _decode_rwkv(x, layers, cfg, cache, part)   # positions implicit in recurrence
     elif fam == "hybrid":
-        x = _decode_hybrid(x, blocks, cfg, cache, pos)
+        x = _decode_hybrid(x, layers, cfg, cache, pos, part)
     elif fam == "encdec":
         x = x + sinusoidal_position_at(pos, cfg.d_model, device=x.device).to(cdt)
-        x = _decode_encdec(x, blocks, cfg, cache, pos)
+        x = _decode_encdec(x, layers, cfg, cache, pos, part)
     else:
         raise ValueError(fam)
-    h = rmsnorm(x, params["final_norm"].to(cdt), cfg.norm_eps)
-    logits = torch.einsum("bsd,dv->bsv", h, _head(params, cfg, cdt))
+    h = rmsnorm(x, _whole(params["final_norm"]).to(cdt), cfg.norm_eps)
+    logits = torch.einsum("bsd,dv->bsv", h, _head(params, cfg, cdt, tied))
     return logits.float(), cache
 
 
 def prefill(params, tokens, cfg, st: ModelSettings = ModelSettings(),
-            enc_inputs=None):
-    """Forward over the prompt; returns the last position's logits (B, V)."""
-    h, _ = forward_hidden(params, tokens, cfg, st, enc_inputs=enc_inputs)
-    logits = torch.einsum("bd,dv->bv", h[:, -1], _head(params, cfg, st.compute_dtype))
+            enc_inputs=None, part=None):
+    """Forward over the prompt; returns the last position's logits (B, V)
+    (on a mesh, ``part``: this rank's rows')."""
+    tied = _tied(params, cfg)
+    h, _ = forward_hidden(params, tokens, cfg, st, enc_inputs=enc_inputs, part=part,
+                          embed=tied)
+    logits = torch.einsum("bd,dv->bv", h[:, -1], _head(params, cfg, st.compute_dtype, tied))
     return logits.float()
 
 

@@ -4,14 +4,20 @@ a device mesh (port of ``repro.serve.step``).
 Each builder returns ``(fn, jit_for)`` as the reference's does.  ``fn``
 runs eagerly on whole trees on the mesh's device.  ``jit_for`` lays the
 inputs out by ``param_shardings``, ``cache_shardings`` and
-``batch_shardings`` (the reference's in-shardings): its step takes this
-rank's blocks, gathers them at use, runs ``fn`` on the whole batch and
-returns the logits whole and the cache as this rank's block.  On a mesh of
-one device every block is the whole tensor and nothing is gathered.
-Tokens and frames are moved to the mesh's device.  ``donate_cache=True``
-updates the caller's cache in place, as the reference's donated buffers
-are; ``False`` decodes into a copy and leaves the caller's cache as it
-was.  The compressed-field analogue,
+``batch_shardings`` (the reference's in-shardings) and partitions the
+compute, ZeRO-3 as the reference states it: its step takes this rank's
+blocks and computes this rank's rows, gathering one layer's parameters at
+a time inside the layer loop.  Decode keeps the cache in its block: the
+rank whose slice of the KV sequence holds ``pos`` writes the new KV, each
+rank attends over its slice and the "model" ranks merge their partial
+softmaxes; a recurrent state is gathered over "model" one layer at a
+time.  A MoE layer whose groups span ranks (decode's few rows) gathers
+its input rows.  The logits come back whole (the rows gathered), the
+cache as this rank's block.  On a mesh of one device every block is the
+whole tensor and the step is ``fn``.  Tokens and frames are moved to the
+mesh's device.  ``donate_cache=True`` updates the caller's cache in place,
+as the reference's donated buffers are; ``False`` decodes into a copy and
+leaves the caller's cache as it was.  The compressed-field analogue,
 :class:`~repro_torch.serve.region.FieldRegionServer`, is re-exported here
 as the reference re-exports it.
 """
@@ -23,12 +29,20 @@ import torch
 
 from repro_torch.launch.mesh import axis_sizes, batch_axes
 from repro_torch.models import ModelSettings, decode_step, prefill
-from repro_torch.train.sharding import (batch_shardings, cache_shardings, gather_tree,
-                                        local_tree, param_shardings)
+from repro_torch.train.sharding import (NamedSharding, Partition, PartitionSpec,
+                                        batch_shardings, cache_shardings, param_shardings,
+                                        sharded_tree)
 
 from .region import FieldRegionServer  # noqa: F401  (the reference's re-export)
 
 __all__ = ["build_decode_step", "build_prefill_step", "FieldRegionServer"]
+
+
+def _cache_rows(cache_sh):
+    """The partition-spec entry of the cache's batch dim (every leaf has
+    the same batch, so the same entry)."""
+    name, sh = next(iter(cache_sh.items()))
+    return sh.spec[2 if name in ("ssm", "conv") else 1]
 
 
 def build_decode_step(cfg, mesh, *, settings: ModelSettings = ModelSettings(),
@@ -43,18 +57,24 @@ def build_decode_step(cfg, mesh, *, settings: ModelSettings = ModelSettings(),
         return decode_step(params, cache, token.to(dev), pos, cfg, settings)
 
     def jit_for(param_tree, cache_tree, token_spec):
+        if mesh.size() == 1:
+            return fn
         param_sh = param_shardings(param_tree, mesh, hybrid=(cfg.family == "hybrid"))
         cache_sh = cache_shardings(cache_tree, mesh)
         token_sh = batch_shardings(token_spec, mesh)
+        rows = _cache_rows(cache_sh)
+        part = Partition(mesh, rows, cache_sh)
 
+        @torch.no_grad()
         def step(params, cache, token, pos):
-            whole = gather_tree(cache, cache_sh)
-            logits, new = fn(gather_tree(params, param_sh), whole,
-                             token_sh.gather(token.to(dev)), pos)
-            new = local_tree(new, cache_sh)
-            if donate_cache:
-                new = {k: v if v is cache[k] else cache[k].copy_(v) for k, v in new.items()}
-            return logits, new
+            token = token.to(dev)
+            if token_sh.spec[0] != rows:    # the cache's rows, not the tokens'
+                token = NamedSharding(mesh, PartitionSpec(rows, None)).local(
+                    token_sh.gather(token))
+            work = cache if donate_cache else {k: v.clone() for k, v in cache.items()}
+            logits, new = decode_step(sharded_tree(params, param_sh), work, token, pos, cfg,
+                                      settings, part)
+            return part.all_rows(logits), new
 
         return step
 
@@ -79,16 +99,19 @@ def build_prefill_step(cfg, mesh, *, settings: ModelSettings = ModelSettings()):
 
     def jit_for(param_tree, batch_specs):
         """Returns (step, the number of its arguments: 2, or 3 with frames)."""
+        nargs = 3 if "frames" in batch_specs else 2
+        if mesh.size() == 1:
+            return fn, nargs
         param_sh = param_shardings(param_tree, mesh, hybrid=(cfg.family == "hybrid"))
-        batch_sh = batch_shardings(batch_specs, mesh)
+        part = Partition(mesh, batch_shardings(batch_specs, mesh)["tokens"].spec[0])
 
+        @torch.no_grad()
         def step(params, tokens, frames=None):
-            whole = gather_tree(params, param_sh)
-            tokens = batch_sh["tokens"].gather(tokens.to(dev))
-            if frames is not None:
-                frames = batch_sh["frames"].gather(frames.to(dev))
-            return fn(whole, tokens, frames)
+            logits = prefill(sharded_tree(params, param_sh), tokens.to(dev), cfg, settings,
+                             enc_inputs=None if frames is None else frames.to(dev),
+                             part=part)
+            return part.all_rows(logits)
 
-        return step, 3 if "frames" in batch_specs else 2
+        return step, nargs
 
     return fn, jit_for

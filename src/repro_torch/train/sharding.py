@@ -4,8 +4,8 @@
 The rules are the reference's, leaf for leaf:
 
 * every parameter is sharded along its largest "model"-divisible axis
-  (ZeRO-3 semantics: the weights are gathered at use; avoids head-count
-  divisibility hazards — qwen2.5 has 40 heads, smollm 9);
+  (ZeRO-3 semantics: the weights are gathered at use, one layer at a time;
+  avoids head-count divisibility hazards — qwen2.5 has 40 heads, smollm 9);
 * expert-stacked leaves (``we*``) shard the expert axis when divisible
   (expert parallelism);
 * scanned layer-stack axes (leading 1-2 dims of ``blocks`` leaves) are never
@@ -13,6 +13,17 @@ The rules are the reference's, leaf for leaf:
 * activations/batches shard over ("pod","data");
 * decode caches shard batch over "data" when divisible and the KV sequence
   axis over "model".
+
+ZeRO-3 as the reference states it, partitioned: a step on a mesh takes
+this rank's blocks of the parameters (:func:`sharded_tree` wraps each in a
+:class:`Block`) and gathers one layer's slice whole at a time, inside the
+layer (:meth:`Block.whole`; no stack dim is ever split, so slice i of a
+block is layer i's block).  In training a :class:`TrainBlock`'s gather is
+an autograd function whose backward reduces the layer's gradient into the
+moments' block as the backward produces it (:func:`reduce_to`).  A serve
+step's :class:`Partition` says which rows of the batch and which slice of
+the KV sequence a rank holds, and joins the parts: the attention's partial
+softmaxes over "model", the rows over the batch axes.
 
 A :class:`PartitionSpec` names, per tensor dim, ``None``, a mesh axis or a
 tuple of axes (major first), as JAX's does; a :class:`NamedSharding` pairs
@@ -32,8 +43,11 @@ import torch.distributed as dist
 
 from repro_torch.launch.mesh import axis_sizes, batch_axes
 
+from .optim import _recip
+
 __all__ = ["param_shardings", "batch_shardings", "cache_shardings",
-           "state_shardings", "path_str", "PartitionSpec", "NamedSharding"]
+           "state_shardings", "path_str", "PartitionSpec", "NamedSharding",
+           "Block", "TrainBlock", "Partition", "sharded_tree", "reduce_to"]
 
 
 class PartitionSpec(tuple):
@@ -83,6 +97,18 @@ class NamedSharding:
             i = names.index(name)
             idx, count = idx * sizes[i] + coord[i], count * sizes[i]
         return idx, count
+
+    def sub(self, n: int = 1) -> NamedSharding:
+        """The sharding of ``x[i]``: ``n`` leading dims indexed away."""
+        return NamedSharding(self.mesh, P(*self.spec[n:]))
+
+    def over(self, *axes: str) -> NamedSharding:
+        """Only the splits over ``axes``; every other dim whole."""
+        def keep(part):
+            kept = tuple(a for a in _axes(part) if a in axes)
+            return None if not kept else kept[0] if len(kept) == 1 else kept
+
+        return NamedSharding(self.mesh, P(*(keep(part) for part in self.spec)))
 
     def shard_shape(self, shape) -> tuple[int, ...]:
         """The shape of one rank's block of a global ``shape``."""
@@ -313,3 +339,154 @@ def _zip_map(fn, tree, other):
     if isinstance(tree, dict):
         return {k: _zip_map(fn, v, other[k]) for k, v in tree.items()}
     return fn(tree, other)
+
+
+def reduce_to(g, sh, mesh, baxes, n_batch: int):
+    """This rank's whole gradient ``g`` (of a leaf, or of one layer's slice
+    of it) -> the batch ranks' mean in ``sh``'s block: reduce-scatter over
+    a batch axis that splits a dim of it, all-reduce over one that does
+    not, then this rank's block along the other split dims.  The "model"
+    ranks compute the same rows, so their gradients are equal: sliced, not
+    summed.  ``g`` itself is not written."""
+    sizes = axis_sizes(mesh)
+    split = {a: d for d, part in enumerate(sh.spec) for a in _axes(part)}
+    fresh = False
+    for a in baxes:
+        n = sizes[a]
+        if n == 1:
+            continue
+        group = mesh.get_group(a)
+        if a not in split:
+            if not fresh:
+                g = g.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(g, group=group)
+        else:
+            chunks = [c.contiguous() for c in g.chunk(n, dim=split[a])]
+            g = torch.empty_like(chunks[0])
+            dist.reduce_scatter(g, chunks, group=group)
+        fresh = True
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    narrowed = False
+    for a, d in split.items():
+        if a not in baxes and sizes[a] > 1:
+            step = g.shape[d] // sizes[a]
+            g = g.narrow(d, coord[a] * step, step)
+            narrowed = True
+    if n_batch > 1:
+        return g * _recip(n_batch)
+    # a block of its own, not a view that keeps the whole slice alive
+    return g.clone() if narrowed else g
+
+
+class Block:
+    """This rank's block (``data``) of a parameter laid out by
+    ``sharding``, for a step that gathers one layer at a time: ``block[i]``
+    is layer i's block (no stack dim is split), :meth:`whole` gathers it."""
+
+    def __init__(self, data: torch.Tensor, sharding: NamedSharding):
+        self.data, self.sharding = data, sharding
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.data.shape
+
+    def __getitem__(self, i) -> Block:
+        return Block(self.data[i], self.sharding.sub(1))
+
+    def whole(self) -> torch.Tensor:
+        return self.sharding.gather(self.data)
+
+
+class _GatherLayer(torch.autograd.Function):
+    """Forward: a block gathered whole.  Backward: the whole gradient
+    reduced into the moments' block (:func:`reduce_to`), the gradient of
+    ``anchor``, a leaf of that block's shape that autograd differentiates
+    in the parameters' place (the two placements differ in ``"tp"``
+    mode)."""
+
+    @staticmethod
+    def forward(ctx, data, anchor, block):
+        ctx.block = block
+        out = block.sharding.gather(data)
+        return out.view_as(out) if out is data else out
+
+    @staticmethod
+    def backward(ctx, g):
+        b = ctx.block
+        return None, reduce_to(g, b.grad_sharding, *b.reduce_over), None
+
+
+class TrainBlock(Block):
+    """A :class:`Block` whose gather is differentiable.  ``anchor`` holds
+    one leaf per layer (nested as the stack dims; a tensor where the leaf
+    has none) of the shape of its block under ``grad_sharding``; the
+    backward of :meth:`whole` lands the layer's gradient there, reduced
+    over ``reduce_over`` = (mesh, batch axes, batch ranks) as it is
+    produced."""
+
+    def __init__(self, data, sharding, anchor, grad_sharding, reduce_over):
+        super().__init__(data, sharding)
+        self.anchor, self.grad_sharding, self.reduce_over = anchor, grad_sharding, reduce_over
+
+    def __getitem__(self, i) -> TrainBlock:
+        return TrainBlock(self.data[i], self.sharding.sub(1), self.anchor[i],
+                          self.grad_sharding.sub(1), self.reduce_over)
+
+    def whole(self) -> torch.Tensor:
+        return _GatherLayer.apply(self.data, self.anchor, self)
+
+
+def sharded_tree(tree, shardings):
+    """Each leaf (this rank's block) as a :class:`Block` of its sharding."""
+    return _zip_map(Block, tree, shardings)
+
+
+class Partition:
+    """One rank's part of a serve step on a mesh.  ``rows`` is the
+    partition-spec entry that splits the batch (``None``, an axis, or a
+    tuple of axes): the rank computes its block of rows.  ``cache_sh`` (a
+    decode step) lays out its blocks of the cache: the KV sequence split
+    over "model", the recurrent states by heads or ``Di``.  The model code
+    calls the methods below to join the parts."""
+
+    def __init__(self, mesh, rows, cache_sh=None):
+        sizes = axis_sizes(mesh)
+        self.mesh, self.rows, self.cache_sh = mesh, rows, cache_sh
+        self.n_rows = 1
+        for a in _axes(rows):
+            self.n_rows *= sizes[a]
+
+    def _rows_sh(self, x) -> NamedSharding:
+        return NamedSharding(self.mesh, P(self.rows, *([None] * (x.dim() - 1))))
+
+    def all_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``x`` (dim 0), in order."""
+        return self._rows_sh(x).gather(x)
+
+    def own_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the whole batch's ``x``."""
+        return self._rows_sh(x).local(x)
+
+    def kv_slice(self, name: str, length: int) -> tuple[int, int]:
+        """(the first position, the number of slices) of this rank's slice
+        of cache leaf ``name``'s sequence dim (dim 2), ``length`` long."""
+        idx, count = self.cache_sh[name]._block(2)
+        return idx * length, count
+
+    def kv_reduce(self, x: torch.Tensor, op: str) -> torch.Tensor:
+        """``x`` (contiguous; written in place and returned) reduced ("max"
+        or "sum") over the "model" ranks, which hold the slices of the KV
+        sequence."""
+        dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                        group=self.mesh.get_group("model"))
+        return x
+
+    def state(self, name: str, x: torch.Tensor, lead: int) -> torch.Tensor:
+        """One layer's recurrent state ``x`` (cache leaf ``name`` with
+        ``lead`` stack dims indexed away) gathered over "model"; its rows
+        stay this rank's."""
+        return self.cache_sh[name].sub(lead).over("model").gather(x)
+
+    def keep(self, name: str, x: torch.Tensor, lead: int) -> torch.Tensor:
+        """This rank's block of a whole state from :meth:`state`."""
+        return self.cache_sh[name].sub(lead).over("model").local(x)

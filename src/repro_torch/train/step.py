@@ -2,22 +2,28 @@
 reduce) -> AdamW over a device mesh (port of ``repro.train.step``).
 
 The mesh is a ``DeviceMesh`` (:mod:`repro_torch.launch.mesh`) and the state
-is laid out by :func:`train_state_shardings`.  The reference's GSPMD
-partitions the compute; the port gathers at use, ZeRO-3 style: a rank
-holds its blocks of the state and its rows of the batch, gathers each
-parameter whole, computes its rows' loss and grads with the single-device
-model (the attention backward is the hand-written one of
-:mod:`repro_torch.models.attention`), reduce-scatters the grads, averaged
-over the batch axes, to the moments' placement, and runs AdamW on its
-blocks.  The "model" ranks compute the same rows (the same numbers as
-GSPMD's, not its partitioned compute).  The global-norm clip sums the
-squares of every leaf's blocks once (a rank adds a leaf only where its
-coordinate is 0 on each axis the leaf is replicated over) in one
-all-reduce.  With ``grad_compress`` set and a "pod" axis present, the
-grads go through :func:`~repro_torch.train.grad_compress.pod_compressed_grads`
-(top-k with error feedback across pods).  On a mesh of one device every
-group has size 1 and no collective runs: the step is the single-device
-step.
+is laid out by :func:`train_state_shardings`.  ZeRO-3 as the reference
+states it: a rank holds its blocks of the parameters and moments and its
+rows of the batch.  The model takes the parameters as
+``train.sharding.TrainBlock`` leaves and gathers one layer's slice whole
+at a time, inside the layer (with remat, again in the backward); the
+gather's backward reduces that layer's gradient into the moments' block
+as the backward produces it (reduce-scatter over a batch axis that splits
+the leaf, all-reduce over one that does not, averaged over the batch
+ranks; the "model" ranks compute the same rows, so their equal gradients
+are sliced).  Autograd differentiates per-layer anchors of the moments'
+block shape, so the gradients come out as blocks, and the micro-batches
+accumulate into float32 blocks; AdamW runs on the blocks.  The attention
+backward is the hand-written one of :mod:`repro_torch.models.attention`.
+The global-norm clip sums the squares of every leaf's blocks once (a rank
+adds a leaf only where its coordinate is 0 on each axis the leaf is
+replicated over) in one all-reduce.  With ``grad_compress`` set and a
+"pod" axis present, the grads go through
+:func:`~repro_torch.train.grad_compress.pod_compressed_grads` (top-k with
+error feedback across pods), which still gathers the parameters whole and
+takes whole grads (ROADMAP §3).  On a mesh of one device every block is
+the whole tensor and the step is the single-device step: nothing is
+gathered and no collective runs.
 """
 from __future__ import annotations
 
@@ -33,8 +39,8 @@ from repro_torch.models import ModelSettings, init_params, lm_loss, param_specs
 from repro_torch.models.common import tree_leaves, tree_map
 
 from .optim import OptConfig, _recip, adamw_update, init_opt_state
-from .sharding import (_axes, batch_shardings, gather_tree, local_tree, path_str,
-                       state_shardings)
+from .sharding import (TrainBlock, _axes, _n_stack_dims, _with_path, _zip_map,
+                       batch_shardings, gather_tree, local_tree, path_str, state_shardings)
 
 __all__ = ["build_train_step", "train_state_specs", "train_state_shardings",
            "init_train_state"]
@@ -106,30 +112,83 @@ def _batch_mean(loss, metrics, grads, mesh, axes):
             tree_map(lambda g: _mean(g, mesh, axes), grads))
 
 
-def _reduce_to(g, sh, mesh, baxes, n_batch: int):
-    """This rank's whole-leaf grad ``g`` -> the batch ranks' mean in
-    ``sh``'s block: reduce-scatter over a batch axis that splits a dim of
-    the leaf, all-reduce over one that does not, then this rank's block
-    along the other split dims."""
-    sizes = axis_sizes(mesh)
-    split = {a: d for d, part in enumerate(sh.spec) for a in _axes(part)}
-    for a in baxes:
-        n = sizes[a]
-        if n == 1:
-            continue
-        group = mesh.get_group(a)
-        if a not in split:
-            dist.all_reduce(g, group=group)
-            continue
-        chunks = [c.contiguous() for c in g.chunk(n, dim=split[a])]
-        g = torch.empty_like(chunks[0])
-        dist.reduce_scatter(g, chunks, group=group)
-    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
-    for a, d in split.items():
-        if a not in baxes and sizes[a] > 1:
-            step = g.shape[d] // sizes[a]
-            g = g.narrow(d, coord[a] * step, step)
-    return g if n_batch == 1 else g * _recip(n_batch)
+def _stack_dims(path, block, hybrid: bool) -> int:
+    """The leading stack dims of a parameter's block (never split)."""
+    return min(_n_stack_dims(path_str(path), hybrid), block.dim() - 1) if block.dim() else 0
+
+
+def _anchor(shape, n_stack: int, dtype, device):
+    """One leaf per layer (nested lists over ``n_stack`` stack dims) of a
+    block's layer shape: zero-strided zeros that autograd differentiates
+    in a :class:`TrainBlock`'s place."""
+    if n_stack == 0:
+        return torch.zeros((), dtype=dtype, device=device).expand(shape).requires_grad_(True)
+    return [_anchor(shape[1:], n_stack - 1, dtype, device) for _ in range(shape[0])]
+
+
+def _flat(x) -> list:
+    return [a for y in x for a in _flat(y)] if isinstance(x, list) else [x]
+
+
+def _stacked(anchor, grads: dict):
+    """The grads of ``anchor``'s leaves, stacked back into the block."""
+    if isinstance(anchor, list):
+        return torch.stack([_stacked(a, grads) for a in anchor])
+    return grads[id(anchor)]
+
+
+def _block_value_and_grad(blocks, batch, cfg, settings, param_sh, grad_sh, reduce_over):
+    """(loss, metrics, grads) of ``lm_loss`` at this rank's parameter
+    ``blocks`` over its rows: the grads are the batch ranks' mean, in
+    ``grad_sh``'s blocks, reduced layer by layer as the backward makes
+    them (:class:`TrainBlock`)."""
+    hybrid = cfg.family == "hybrid"
+
+    def leaf(path, block, sh, gsh):
+        anchor = _anchor(gsh.shard_shape(_whole_shape(block, sh)),
+                         _stack_dims(path, block, hybrid), block.dtype, block.device)
+        return TrainBlock(block.detach(), sh, anchor, gsh, reduce_over)
+
+    tree = _with_path(lambda path, b: leaf(path, b, _at(param_sh, path), _at(grad_sh, path)),
+                      blocks)
+    live = [t.anchor for _, t in tree_leaves(tree)]
+    anchors = [a for x in live for a in _flat(x)]
+    with torch.enable_grad():
+        loss, metrics = lm_loss(tree, batch, cfg, settings)
+        grads = torch.autograd.grad(loss, anchors, allow_unused=True, materialize_grads=True)
+    by_id = dict(zip(map(id, anchors), grads))
+    del grads
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, _zip_map(lambda t, _: _stacked(t.anchor, by_id), tree,
+                                            blocks)
+
+
+def _whole_shape(block, sh) -> tuple:
+    """The global shape of ``block`` under ``sh``."""
+    return tuple(s * sh._block(d)[1] for d, s in enumerate(block.shape))
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _relayout(tree, src, dst, hybrid: bool):
+    """Blocks under ``src`` -> blocks under ``dst`` (the ``"tp"``
+    parameters' and moments' placements differ), one layer's slice of a
+    leaf whole at a time."""
+    def one(block, a, b, n_stack):
+        if a.spec == b.spec:
+            return block
+        if n_stack == 0:
+            return b.local(a.gather(block))
+        return torch.stack([one(x, a.sub(1), b.sub(1), n_stack - 1) for x in block])
+
+    def leaf(path, block):
+        return one(block, _at(src, path), _at(dst, path), _stack_dims(path, block, hybrid))
+
+    return _with_path(leaf, tree)
 
 
 def _sharded_norm(grads, shardings, mesh):
@@ -202,20 +261,31 @@ def build_train_step(cfg, mesh, *, settings: ModelSettings = ModelSettings(),
     state_shapes = _block_shapes(specs, state_sh)
     # the grads reduce to the moments' placement, where AdamW runs
     moment_sh = state_sh["m"]
-    same_layout = all(a.spec == b.spec for (_, a), (_, b)
-                      in zip(tree_leaves(state_sh["params"]), tree_leaves(moment_sh)))
+    whole_params = mesh.size() == 1    # every block the whole tensor
+    same_layout = whole_params or all(
+        a.spec == b.spec for (_, a), (_, b)
+        in zip(tree_leaves(state_sh["params"]), tree_leaves(moment_sh)))
+    hybrid = cfg.family == "hybrid"
+    reduce_over = (mesh, baxes, nb)
+
+    def grads_one(params, batch):
+        if whole_params:
+            return _value_and_grad(params, batch, cfg, settings)
+        return _block_value_and_grad(params, batch, cfg, settings, state_sh["params"],
+                                     moment_sh, reduce_over)
 
     def grads_of(params, batch):
         if micro_batches == 1:
-            return _value_and_grad(params, batch, cfg, settings)
+            return grads_one(params, batch)
         mb = {k: v.reshape(micro_batches, v.shape[0] // micro_batches, *v.shape[1:])
               for k, v in batch.items()}
-        g_acc = tree_map(lambda a: torch.zeros(a.shape, dtype=torch.float32, device=a.device),
-                         params)
+        # float32 blocks of the moments' placement
+        g_acc = _with_path(lambda path, a: torch.zeros(
+            _at(moment_sh, path).shard_shape(_whole_shape(a, _at(state_sh["params"], path))),
+            dtype=torch.float32, device=a.device), params)
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(micro_batches):
-            loss, _, g = _value_and_grad(params, {k: v[i] for k, v in mb.items()}, cfg,
-                                         settings)
+            loss, _, g = grads_one(params, {k: v[i] for k, v in mb.items()})
             g_acc = tree_map(lambda a, b: a + b.to(torch.float32), g_acc, g)
             loss_sum = loss_sum + loss
         inv = 1.0 / micro_batches
@@ -223,8 +293,8 @@ def build_train_step(cfg, mesh, *, settings: ModelSettings = ModelSettings(),
         return loss, {"ce": loss}, tree_map(lambda a: a * inv, g_acc)
 
     def local_step(state, batch):
-        params = gather_tree(state["params"], state_sh["params"])
         if grad_compress and multi_pod:
+            params = gather_tree(state["params"], state_sh["params"])
             residual = gather_tree(state["residual"], state_sh["residual"])
             (loss, metrics), grads, residual, cmx = pod_compressed_grads(
                 lambda p: lm_loss(p, batch, cfg, settings), params, residual, batch, cfg,
@@ -233,19 +303,18 @@ def build_train_step(cfg, mesh, *, settings: ModelSettings = ModelSettings(),
             grads = local_tree(grads, moment_sh)
             residual = local_tree(residual, state_sh["residual"])
         else:
-            loss, metrics, grads = grads_of(params, batch)
+            loss, metrics, grads = grads_of(state["params"], batch)
             loss, metrics = _mean(loss, mesh, baxes), {k: _mean(v, mesh, baxes)
                                                        for k, v in metrics.items()}
-            grads = tree_map(lambda g, sh: _reduce_to(g, sh, mesh, baxes, nb), grads,
-                             moment_sh)
             residual = state.get("residual")
         with torch.no_grad():
-            p = state["params"] if same_layout else local_tree(params, moment_sh)
+            p = state["params"] if same_layout else _relayout(
+                state["params"], state_sh["params"], moment_sh, hybrid)
             new_p, opt_state, om = adamw_update(
                 p, grads, {"m": state["m"], "v": state["v"], "step": state["step"]}, opt,
                 _sharded_norm(grads, moment_sh, mesh))
             if not same_layout:
-                new_p = local_tree(gather_tree(new_p, moment_sh), state_sh["params"])
+                new_p = _relayout(new_p, moment_sh, state_sh["params"], hybrid)
             new_state = {"params": new_p, **opt_state}
             if residual is not None:
                 new_state["residual"] = residual

@@ -111,9 +111,11 @@ def unflatten(flat: dict, prefix: str) -> dict:
 def serve_rank(rank, world, init_file, out_dir, shape):
     """The serve builders over mesh ``shape`` ("data", "model"): three decode
     steps and a prefill through ``jit_for`` on this rank's blocks of the
-    reduced smollm's params, cache and tokens, against ``fn`` on the whole
-    trees; writes whether the logits and the cache blocks are equal, bit
-    for bit."""
+    reduced smollm's params, cache and tokens, and ``fn`` on the whole
+    trees; writes both logits (``decode{i}/got`` and ``want``,
+    ``prefill/...``), this rank's cache block and ``fn``'s cache cut to it
+    (``decode{i}/cache/{leaf}/...``), and whether the step wrote the cache
+    block in place (``decode{i}/in_place``)."""
     import repro_torch.configs as tconfigs
     import repro_torch.models as T
     from repro_torch.launch.mesh import make_mesh
@@ -129,12 +131,12 @@ def serve_rank(rank, world, init_file, out_dir, shape):
         st = T.ModelSettings(q_chunk=16, kv_chunk=16, remat="none", compute_dtype=torch.float32)
         mesh = make_mesh(shape, ("data", "model"), device="cpu")
         params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        local_params = local_tree(params, param_shardings(params, mesh))
         toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 8))
                                 .astype(np.int32))
         whole = T.cache_spec(cfg, 2, 8, dtype=torch.float32, mode="zeros", device="cpu")
         fn, jit_for = build_decode_step(cfg, mesh, settings=st)
         step = jit_for(params, whole, toks[:, :1])
-        local_params = local_tree(params, param_shardings(params, mesh))
         cache_sh = cache_shardings(whole, mesh)
         cache = {k: v.clone() for k, v in local_tree(whole, cache_sh).items()}
         token_sh = batch_shardings(toks[:, :1], mesh)
@@ -142,15 +144,126 @@ def serve_rank(rank, world, init_file, out_dir, shape):
         for i in range(3):
             want, whole = fn(params, whole, toks[:, i:i + 1], i)
             got, new = step(local_params, cache, token_sh.local(toks[:, i:i + 1]), i)
-            out[f"decode{i}/logits"] = np.array(torch.equal(got, want))
-            out[f"decode{i}/cache"] = np.array(all(
-                new[k] is cache[k] and torch.equal(new[k], cache_sh[k].local(whole[k]))
-                for k in whole))
+            out[f"decode{i}/got"], out[f"decode{i}/want"] = got.numpy(), want.numpy()
+            out[f"decode{i}/in_place"] = np.array(all(new[k] is cache[k] for k in whole))
+            for k in whole:
+                out[f"decode{i}/cache/{k}/got"] = new[k].numpy().copy()
+                out[f"decode{i}/cache/{k}/want"] = cache_sh[k].local(whole[k]).numpy().copy()
         pfn, pjit = build_prefill_step(cfg, mesh, settings=st)
         pstep, nargs = pjit(params, {"tokens": toks})
         rows = batch_shardings({"tokens": toks}, mesh)["tokens"].local(toks)
-        out["prefill"] = np.array(nargs == 2 and torch.equal(pstep(local_params, rows),
-                                                            pfn(params, toks)))
+        assert nargs == 2
+        out["prefill/got"] = pstep(local_params, rows).numpy()
+        out["prefill/want"] = pfn(params, toks).numpy()
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+#: the meshes of the partitioned serve tests: the KV sequence (and the
+#: parameters, the states' heads or Di) split over "model"; the rows over
+#: "data"
+SERVE_MESHES = {"model2": (1, 2), "data2": (2, 1)}
+
+
+def partitioned_rank(rank, world, init_file, out_dir, arch, params, cache, toks, frames,
+                     positions):
+    """The reduced ``arch``'s serve builders on each of ``SERVE_MESHES``,
+    through ``jit_for`` on this rank's blocks of the reference's weights
+    ``params`` (numpy): prefill of ``toks`` (and ``frames``), and one
+    decode step from the cache ``cache`` (numpy, whole) at each of
+    ``positions``, each from a fresh copy; writes the logits
+    (``{mesh}/prefill``, ``{mesh}/pos{p}/logits``) and this rank's cache
+    block after each step (``{mesh}/pos{p}/cache/{leaf}``)."""
+    import repro_torch.configs as tconfigs
+    import repro_torch.models as T
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.convert import from_reference
+    from repro_torch.serve.step import build_decode_step, build_prefill_step
+    from repro_torch.train.sharding import (batch_shardings, cache_shardings, local_tree,
+                                            param_shardings)
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        cfg = tconfigs.reduced(tconfigs.ARCHS[arch])
+        st = T.ModelSettings(q_chunk=16, kv_chunk=16, remat="none", compute_dtype=torch.float32)
+        whole_params = from_reference(params, device="cpu")
+        whole_cache = from_reference(cache, device="cpu")
+        batch = {"tokens": torch.from_numpy(toks)}
+        if frames is not None:
+            batch["frames"] = torch.from_numpy(frames)
+        token = batch["tokens"][:, :1]
+        out = {}
+        for tag, shape in SERVE_MESHES.items():
+            mesh = make_mesh(shape, ("data", "model"), device="cpu")
+            local = local_tree(whole_params, param_shardings(
+                whole_params, mesh, hybrid=(cfg.family == "hybrid")))
+            _, pjit = build_prefill_step(cfg, mesh, settings=st)
+            pstep, nargs = pjit(whole_params, batch)
+            rows = local_tree(batch, batch_shardings(batch, mesh))
+            out[f"{tag}/prefill"] = pstep(local, *(rows[k] for k in ("tokens", "frames")
+                                                   if k in rows)).numpy()
+            _, djit = build_decode_step(cfg, mesh, settings=st)
+            step = djit(whole_params, whole_cache, token)
+            cache_sh = cache_shardings(whole_cache, mesh)
+            tok = batch_shardings(token, mesh).local(token)
+            for pos in positions:
+                blocks = {k: v.clone() for k, v in local_tree(whole_cache, cache_sh).items()}
+                logits, new = step(local, blocks, tok, pos)
+                out[f"{tag}/pos{pos}/logits"] = logits.numpy()
+                for k, v in new.items():
+                    out[f"{tag}/pos{pos}/cache/{k}"] = v.numpy()
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def grads_rank(rank, world, init_file, out_dir, arch, params, batch, meshes, remat):
+    """The reduced ``arch``'s loss gradients on each mesh of ``meshes``
+    ({tag: shape} over ("data", "model")): this rank's blocks of the
+    reference's weights ``params`` (numpy) and rows of ``batch``, through
+    ``train.step._block_value_and_grad`` (one layer gathered at a time,
+    each layer's grads reduced into the moments' blocks in the backward);
+    writes the loss and metrics averaged over the batch ranks
+    (``{tag}/loss``, ``{tag}/metric/{k}``), the grads' blocks
+    (``{tag}/grad/{path}``) and their specs (``{tag}/spec/{path}``)."""
+    import json
+
+    import repro_torch.configs as tconfigs
+    from repro_torch.launch.mesh import axis_sizes, batch_axes, make_mesh
+    from repro_torch.models import ModelSettings
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.convert import from_reference
+    from repro_torch.train import step
+    from repro_torch.train.sharding import batch_shardings, local_tree
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        cfg = tconfigs.reduced(tconfigs.ARCHS[arch])
+        st = ModelSettings(**dict(SETTINGS, remat=remat), compute_dtype=torch.float32)
+        whole = from_reference(params, device="cpu")
+        tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        out = {}
+        for tag, shape in meshes.items():
+            mesh = make_mesh(shape, ("data", "model"), device="cpu")
+            sizes = axis_sizes(mesh)
+            baxes = batch_axes(mesh)
+            nb = int(np.prod([sizes[a] for a in baxes]))
+            state_sh = step.train_state_shardings(cfg, mesh)
+            blocks = local_tree(whole, state_sh["params"])
+            rows = local_tree(tbatch, batch_shardings(tbatch, mesh))
+            loss, metrics, grads = step._block_value_and_grad(
+                blocks, rows, cfg, st, state_sh["params"], state_sh["m"], (mesh, baxes, nb))
+            out[f"{tag}/loss"] = step._mean(loss, mesh, baxes).numpy()
+            for k, v in metrics.items():
+                out[f"{tag}/metric/{k}"] = step._mean(v, mesh, baxes).numpy()
+            for (path, g), (_, sh) in zip(tree_leaves(grads), tree_leaves(state_sh["m"])):
+                out[f"{tag}/grad/{'/'.join(path)}"] = g.numpy()
+                out[f"{tag}/spec/{'/'.join(path)}"] = np.array(json.dumps(list(sh.spec)))
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()

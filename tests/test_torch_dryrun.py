@@ -5,20 +5,26 @@ process, fake tensors: nothing is allocated).
 
 Each cell's counts are held to what the port's own placements say
 (``train/sharding.py``): the arguments are the rank's blocks, and every
-collective's bytes are what gathering at use, the reduce-scatter of the
-grads to the moments' blocks, the batch means and the clip's all-reduce
-move.  They cannot be held against the reference's HLO: GSPMD partitions
-the compute, the port gathers at use (ROADMAP §3).  The flops are held
-against ``models.costs.detailed_flops``: a train step's per device times
-the batch ranks within 15% of its total (the port's checkpoint reruns
-neither the LM head nor a layer's last product, where the analytic count
-assumes four full passes); prefill and decode per device within 1% of the
-whole batch's, since every rank computes the whole batch (prefill's head
-at the last position only).  Reduced dense configs (smollm-135m,
-qwen3-32b), B 2 per batch rank for train and 1 for serving, S 32 in 16-wide
-attention chunks.  Then the CLI at full width (smollm-135m, decode_32k,
-both meshes): the reference's JSON keys in order, its lines, and a failing
-cell's exit 1.
+collective's bytes are what the partitioned step moves: each layer's
+parameters gathered inside the layer (again in a remat backward), each
+layer's grads reduced to the moments' blocks, the batch means and the
+clip's all-reduce; in decode the attention's log-sum-exp merge over
+"model" (a MAX and a SUM a layer) and the logits' rows, in prefill the
+logits' rows.  They cannot be held against the reference's HLO, which
+GSPMD partitions its own way.  The flops are held against
+``models.costs.detailed_flops``: a train step's per device times the
+batch ranks within 15% of its total (the port's checkpoint reruns neither
+the LM head nor a layer's last product, where the analytic count assumes
+four full passes); prefill per device times the batch ranks within 1% of
+the whole batch's (its head at the last position only), and decode's
+within 1% of its rows' products plus its rows' attention over its slice
+of the KV sequence.  Reduced dense configs (smollm-135m, qwen3-32b), B 2
+per batch rank for train and 1 for serving, S 32 in 16-wide attention
+chunks.  The peak of a deeper reduced config's train and decode cells on
+a 4x4 mesh stays under the rank's blocks, two layers whole and the step's
+activations.  Then the CLI at full width (smollm-135m, decode_32k, both
+meshes): the reference's JSON keys in order, its lines, a peak under
+80 GB, and a failing cell's exit 1.
 """
 import json
 import math
@@ -31,7 +37,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from repro_torch.configs import ARCHS, ShapeConfig, reduced
+from repro_torch.configs import ARCHS, SHAPES, ShapeConfig, reduced
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import axis_sizes, batch_axes, make_production_mesh
 from repro_torch.models import ModelSettings, input_batch_specs, lm_loss, param_specs
@@ -79,30 +85,36 @@ def _block_bytes(specs, shardings) -> int:
                for (_, s), (_, sh) in zip(tree_leaves(specs), tree_leaves(shardings)))
 
 
-def _gather_bytes(specs, shardings, sizes) -> tuple[int, int]:
+def _gather_bytes(specs, shardings, sizes, per_layer=None) -> tuple[int, int]:
     """(bytes, calls) of the all-gathers that make each leaf whole from its
     block: per split dim, each of its axes minor first, the tensor gathered
-    so far times the axis."""
+    so far times the axis.  With ``per_layer`` a stacked leaf (under
+    "blocks", one stack dim: the dense configs) is gathered one layer's
+    slice at a time, ``per_layer`` times a layer."""
     total = calls = 0
-    for (_, s), (_, sh) in zip(tree_leaves(specs), tree_leaves(shardings)):
-        shape = list(sh.shard_shape(s.shape))
-        for d, part in enumerate(sh.spec):
+    for (path, s), (_, sh) in zip(tree_leaves(specs), tree_leaves(shardings)):
+        shape, spec, times = list(sh.shard_shape(s.shape)), sh.spec, 1
+        if per_layer and "blocks" in path and len(shape) > 1:
+            shape, spec, times = shape[1:], spec[1:], per_layer * shape[0]
+        for d, part in enumerate(spec):
             for a in reversed(_axes(part)):
                 if sizes[a] > 1:
                     shape[d] *= sizes[a]
-                    total += _nbytes(shape, s.dtype)
-                    calls += 1
+                    total += times * _nbytes(shape, s.dtype)
+                    calls += times
     return total, calls
 
 
 def _grad_reduce_bytes(specs, moment_sh, sizes, baxes) -> dict:
-    """Per op, (bytes, calls) of taking each whole float32 grad to the
-    moments' block: over each batch axis, a reduce-scatter where the axis
-    splits a dim of the leaf, else an all-reduce of what is left."""
+    """Per op, (bytes, calls) of taking each float32 grad, a stacked leaf's
+    one layer at a time, to the moments' block: over each batch axis, a
+    reduce-scatter where the axis splits a dim of the leaf, else an
+    all-reduce of what is left."""
     out = {"all-reduce": [0, 0], "reduce-scatter": [0, 0]}
-    for (_, s), (_, sh) in zip(tree_leaves(specs), tree_leaves(moment_sh)):
+    for (path, s), (_, sh) in zip(tree_leaves(specs), tree_leaves(moment_sh)):
         split = {a for part in sh.spec for a in _axes(part)}
-        n = s.numel()
+        layers = s.shape[0] if "blocks" in path and s.dim() > 1 else 1
+        n = s.numel() // layers
         for a in baxes:
             if sizes[a] == 1:
                 continue
@@ -111,9 +123,30 @@ def _grad_reduce_bytes(specs, moment_sh, sizes, baxes) -> dict:
                 op = "reduce-scatter"
             else:
                 op = "all-reduce"
-            out[op][0] += 4 * n
-            out[op][1] += 1
+            out[op][0] += 4 * n * layers
+            out[op][1] += layers
     return out
+
+
+def _rows_gather(shape, rows, sizes, dtype=torch.float32) -> tuple[int, int]:
+    """(bytes, calls) of gathering a (B, ...) result's rows, split over the
+    axes ``rows``, minor first."""
+    shape, total, calls = list(shape), 0, 0
+    n = math.prod(sizes[a] for a in rows)
+    shape[0] //= n
+    for a in reversed(rows):
+        if sizes[a] > 1:
+            shape[0] *= sizes[a]
+            total += _nbytes(shape, dtype)
+            calls += 1
+    return total, calls
+
+
+def _decode_flops(cfg, shape, n_rows, n_model) -> float:
+    """A decode rank's flops: its rows' products, and its rows' attention
+    over its slice of the KV sequence."""
+    f = detailed_flops(cfg, shape, attn_impl=SETTINGS.attn_impl, remat=SETTINGS.remat)
+    return f["matmul_fwd"] / n_rows + f["attn_fwd"] / (n_rows * n_model)
 
 
 def _metrics(cfg) -> list:
@@ -142,9 +175,9 @@ def _cell(cfg, kind, mesh, nb, **kw) -> dict:
         specs = train_state_specs(cfg, grad_compress=gcomp)
         state_sh = train_state_shardings(cfg, mesh, grad_compress=gcomp)
         args = _block_bytes(specs, state_sh) + _block_bytes(batch, batch_shardings(batch, mesh))
-        add("all-gather", _gather_bytes(specs["params"], state_sh["params"], sizes))
         scalars = 1 + len(_metrics(cfg))            # the loss and each metric
         if gcomp:
+            add("all-gather", _gather_bytes(specs["params"], state_sh["params"], sizes))
             # whole grads and the residual: the mean over "data", then the pods'
             # exchange, each pod's payload and its loss and metrics gathered
             leaves = [s for _, s in tree_leaves(specs["params"])]
@@ -156,6 +189,9 @@ def _cell(cfg, kind, mesh, nb, **kw) -> dict:
             payload = gc.payload_bytes(specs["params"], gcomp) + 4 * scalars
             add("all-gather", (sizes["pod"] * payload, sends))
         else:
+            # each layer gathered in the forward and again in the remat backward
+            add("all-gather", _gather_bytes(specs["params"], state_sh["params"], sizes,
+                                            per_layer=2 if SETTINGS.remat != "none" else 1))
             add("all-reduce", (4 * scalars * len(baxes), scalars * len(baxes)))
             for op, pair in _grad_reduce_bytes(specs["params"], state_sh["m"], sizes,
                                                baxes).items():
@@ -165,19 +201,28 @@ def _cell(cfg, kind, mesh, nb, **kw) -> dict:
     else:
         pspecs = param_specs(cfg)
         psh = param_shardings(pspecs, mesh, hybrid=hybrid)
-        add("all-gather", _gather_bytes(pspecs, psh, sizes))
+        add("all-gather", _gather_bytes(pspecs, psh, sizes, per_layer=1))
+        B = shape.global_batch
         if kind == "prefill":
             bsh = batch_shardings(batch, mesh)
             args = _block_bytes(pspecs, psh) + _block_bytes(batch, bsh)
-            add("all-gather", _gather_bytes(batch, bsh, sizes))
+            add("all-gather", _rows_gather((B, cfg.vocab), _axes(bsh["tokens"].spec[0]),
+                                           sizes))
             alias = 0
         else:
             csh = cache_shardings(batch["cache"], mesh)
             tsh = batch_shardings(batch["token"], mesh)
             alias = _block_bytes(batch["cache"], csh)
             args = _block_bytes(pspecs, psh) + alias + _block_bytes(batch["token"], tsh)
-            add("all-gather", _gather_bytes(batch["cache"], csh, sizes))
-            add("all-gather", _gather_bytes(batch["token"], tsh, sizes))
+            rows = _axes(csh["k"].spec[1])       # the cache's rows
+            if _axes(tsh.spec[0]) != rows:       # the tokens of the cache's rows
+                add("all-gather", _gather_bytes(batch["token"], tsh, sizes))
+            if sizes["model"] > 1:               # each layer's log-sum-exp merge
+                b = B // math.prod(sizes[a] for a in rows)
+                G = cfg.n_heads // cfg.n_kv_heads
+                add("all-reduce", (cfg.n_layers * 4 * b * cfg.n_kv_heads * G
+                                   * (1 + cfg.hd + 1), 2 * cfg.n_layers))
+            add("all-gather", _rows_gather((B, 1, cfg.vocab), rows, sizes))
     return {"count": c, "shape": shape, "args": args, "alias": alias, "collectives": want}
 
 
@@ -220,10 +265,13 @@ def test_flops_per_device_against_detailed_flops(cells, arch, mesh, kind):
                            remat=SETTINGS.remat)["total"]
     if kind == "train":
         assert abs(got * cells[mesh] / total - 1) <= TRAIN_RTOL, (got, total)
-    else:
-        if kind == "prefill":   # logits at the last position only
-            total -= 2 * cfg.vocab * cfg.d_model * shape.global_batch * (S - 1)
-        assert abs(got / total - 1) <= SERVE_RTOL, (got, total)
+    elif kind == "prefill":     # each batch rank its rows; logits at the last position only
+        total -= 2 * cfg.vocab * cfg.d_model * shape.global_batch * (S - 1)
+        assert abs(got * cells[mesh] / total - 1) <= SERVE_RTOL, (got, total)
+    else:                       # its rows (over "data"), its slice of the KV sequence
+        # both production meshes: 16 "data" ranks split the cache's rows, 16 "model"
+        # ranks its KV sequence
+        assert abs(got / _decode_flops(cfg, shape, 16, 16) - 1) <= SERVE_RTOL, (got, total)
 
 
 @pytest.mark.parametrize("arch,mesh,kind", CELLS, ids=CELL_IDS)
@@ -253,6 +301,89 @@ def test_topk32_pod_gather_is_the_payload(cells):
     for op, (nbytes, calls) in cell["collectives"].items():
         assert got[op] == {"bytes": nbytes, "count": calls}, (op, got[op], nbytes, calls)
     assert got["reduce-scatter"]["count"] == 0
+
+
+#: the memory test's config: reduced smollm-135m, 16 layers, d_ff 1024 (the
+#: parameters outweigh the activations, so that a design holding them whole
+#: fails it)
+DEEP = dict(n_layers=16, d_ff=1024)
+
+
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_the_peak_holds_one_layer_whole_at_a_time(kind):
+    """A cell on a 4x4 mesh (a fake world of 16) peaks under the rank's
+    blocks, two layers' parameters whole (float32 and their bfloat16 cast),
+    the embedding whole, and the step's activations.  Blocks: the
+    arguments (state or parameters and cache, and the rows), for train also
+    the new state and two copies of the grads' blocks (a layer's own and
+    the stacked).  Activations, counted in float32 and generously: eight
+    tensors a row and position of the widest of D, F and V, and (train)
+    every layer's saved input, (decode) the rank's score blocks.  Gathering
+    every parameter whole, as the port did before, needs the whole float32
+    parameters (and for train their whole grads) on top of the blocks,
+    which exceeds that bound."""
+    import dataclasses
+
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import count_params
+
+    cfg = dataclasses.replace(reduced(ARCHS["smollm-135m"]), **DEEP)
+    B, S = (8, 32) if kind == "train" else (4, 64)
+    assert not dist.is_initialized()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=16)
+    try:
+        mesh = make_mesh((4, 4), ("data", "model"), device="cpu")
+        c = dryrun.count_cell(cfg, ShapeConfig("x", S, B, kind), mesh, SETTINGS)
+        if kind == "train":
+            specs = train_state_specs(cfg)
+            m_blocks = _block_bytes(specs["m"], train_state_shardings(cfg, mesh)["m"])
+    finally:
+        dist.destroy_process_group()
+    L, D, F, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
+    whole = 4 * count_params(cfg)
+    embed = 4 * V * D
+    layer = (whole - embed - 4 * D) // L           # the final norm's D aside
+    rows = B // 4                                  # the rank's rows (over "data")
+    act = 8 * rows * (S if kind == "train" else 1) * max(D, F, V) * 4
+    if kind == "train":
+        blocks = c.argument_bytes + c.output_bytes + 2 * m_blocks
+        act += L * rows * S * D * 4
+        old = c.argument_bytes + 2 * whole
+    else:
+        blocks = c.argument_bytes
+        act += 8 * rows * cfg.n_heads * (S // 4) * 4
+        old = c.argument_bytes + whole
+    bound = blocks + 2 * layer * 3 // 2 + embed * 3 // 2 + act
+    assert c.peak_bytes <= bound, (c.peak_bytes, bound)
+    assert old > bound, (old, bound)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_run_cell_runs_the_ranks_step_for_real(kind):
+    """``run_cell`` runs rank 0's step on real random blocks, the same
+    arguments as ``count_cell`` counts, in a fake world of 16 on a 4x4
+    mesh (each family's reduced config; no peak on the CPU)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_mesh
+
+    shape = ShapeConfig("x", S, 8 if kind == "train" else 4, kind)
+    assert not dist.is_initialized()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=16)
+    try:
+        mesh = make_mesh((4, 4), ("data", "model"), device="cpu")
+        for arch in ("smollm-135m", "olmoe-1b-7b", "rwkv6-7b", "jamba-v0.1-52b",
+                     "whisper-small"):
+            cfg = reduced(ARCHS[arch])
+            c = dryrun.count_cell(cfg, shape, mesh, SETTINGS)
+            run = dryrun.run_cell(cfg, shape, mesh, SETTINGS, steps=2)
+            assert run["argument_bytes"] == c.argument_bytes, arch
+            assert len(run["seconds"]) == 2 and min(run["seconds"]) > 0, arch
+            assert run["micro_batches"] == 1 and run["max_memory_allocated"] is None
+    finally:
+        dist.destroy_process_group()
 
 
 def test_the_cli_writes_the_references_json(tmp_path):
@@ -288,10 +419,17 @@ def test_the_cli_writes_the_references_json(tmp_path):
         mem = res["memory"]
         assert mem["generated_code_bytes"] == 0 and mem["temp_bytes"] > 0
         assert 0 < mem["alias_bytes"] <= mem["argument_bytes"]
-        # every rank decodes the whole batch from the gathered cache
-        assert abs(res["flops_per_device"] / res["analytic"]["total"] - 1) <= SERVE_RTOL
-        assert res["collectives"]["all-gather"]["bytes"] > 2 * cfg.n_layers * 128 * 32768 \
-            * cfg.n_kv_heads * cfg.hd * 2 * (1 - 1 / 256)   # the bf16 cache, gathered
+        # a rank decodes its 8 rows over its slice of the KV sequence and
+        # gathers no cache (the whole bf16 cache is ~97 GB): its all-gathers
+        # are the float32 parameters, one layer at a time (a leaf split over
+        # "data" and "model" passes a 1/16 part on the way), and the logits
+        shape = SHAPES["decode_32k"]
+        assert abs(res["flops_per_device"] / _decode_flops(cfg, shape, 16, 16) - 1) \
+            <= SERVE_RTOL
+        params, logits = 4 * res["params_total"], 128 * cfg.vocab * 4
+        assert params < res["collectives"]["all-gather"]["bytes"] \
+            <= params * (1 + 1 / 16) + logits
+        assert mem["argument_bytes"] + mem["temp_bytes"] < 80e9     # fits an 80 GB card
 
 
 def test_a_failing_cell_is_recorded_and_exits_1(tmp_path, monkeypatch, capsys):

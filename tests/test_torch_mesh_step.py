@@ -1,22 +1,26 @@
 """The port's mesh (``repro_torch.launch.mesh``) and its train step over a
-mesh of two gloo processes (``repro_torch.train.step``'s ``jit_for``)
-against the reference's single-device step on the global batch, on the
-CPU.
+mesh of two or four gloo processes (``repro_torch.train.step``'s
+``jit_for``) against the reference's single-device step on the global
+batch, on the CPU.
 
 The reference's step runs on a 1x1 mesh through its ``jit_for`` (batch 4 x
 16 tokens of ``batch_at``'s data, reduced smollm, float32); its state
-before the step goes to two spawned ranks, which take their blocks of it
+before the step goes to the spawned ranks, which take their blocks of it
 (``train_state_shardings``) and their rows of the batch
 (``batch_shardings``), step once, and write their blocks, the gathered
-state and the metrics.  Meshes: ("data", "model") (2, 1), which splits the
-batch and a second dim of each leaf over "data" (gathers at use,
-reduce-scatters the grads), also with ``micro_batches=2``; and (1, 2),
-which splits the leaves over "model" (the ranks compute the same rows),
-in ``fsdp`` and in ``tp`` mode (the parameters' placement is not the
-moments').  Tolerances are tests/test_torch_train_step.py's: loss and
-grad_norm rtol 1e-5; m within 1e-4 and v within 2e-4 of the leaf's scale;
-each parameter within ``lr min(2, 2e-4 max|m| / (|m| + (1 - b1) eps))``
-plus 1e-6 of the leaf's scale.
+state and the metrics.  Each rank gathers one layer's parameters at a
+time and reduces that layer's grads into the moments' blocks in the
+backward.  Meshes: ("data", "model") (2, 1), which splits the batch and a
+second dim of each leaf over "data" (reduce-scatters the grads), also
+with ``micro_batches=2``; (1, 2), which splits the leaves over "model"
+(the ranks compute the same rows), in ``fsdp`` and in ``tp`` mode (the
+parameters' placement is not the moments'), ``tp`` also with
+``micro_batches=2``; and (2, 2), both at once, also with
+``micro_batches=2``.  Tolerances are
+tests/test_torch_train_step.py's: loss and grad_norm rtol 1e-5; m within
+1e-4 and v within 2e-4 of the leaf's scale; each parameter within ``lr
+min(2, 2e-4 max|m| / (|m| + (1 - b1) eps))`` plus 1e-6 of the leaf's
+scale.
 """
 import dataclasses
 import functools
@@ -45,6 +49,9 @@ from _torch_mesh import OPT, end_the_world_it_started  # noqa: F401  (autouse)
 from _torch_mesh import serve_rank, spawn, step_rank, unflatten
 
 GNORM_RTOL = 1e-5
+#: tests/test_torch_llm_serve.py's float32 tolerance: rtol, and atol times
+#: the largest |value|
+SERVE_RTOL, SERVE_ATOL_SCALE = 1e-4, 1e-5
 M_SCALE, V_SCALE, P_SCALE = 1e-4, 2e-4, 1e-6
 RST = R.ModelSettings(q_chunk=16, kv_chunk=16, ce_chunk=32, remat="none",
                       compute_dtype=jnp.float32)
@@ -95,6 +102,9 @@ MESHES = {
     "data2-micro2": ((2, 1), {"micro_batches": 2}),
     "model2": ((1, 2), {}),
     "model2-tp": ((1, 2), {"sharding_mode": "tp"}),
+    "model2-tp-micro2": ((1, 2), {"sharding_mode": "tp", "micro_batches": 2}),
+    "data2-model2": ((2, 2), {}),
+    "data2-model2-micro2": ((2, 2), {"micro_batches": 2}),
 }
 
 
@@ -102,7 +112,9 @@ MESHES = {
 def test_two_rank_step_matches_the_single_device_reference(tmp_path, case):
     shape, kw = MESHES[case]
     before, batch, want, wmet = _reference_step(kw.get("micro_batches", 1))
-    ranks = spawn(step_rank, 2, tmp_path, before, batch, shape, ("data", "model"), kw, False)
+    world = int(np.prod(shape))
+    ranks = spawn(step_rank, world, tmp_path, before, batch, shape, ("data", "model"), kw,
+                  False)
     sizes = dict(zip(("data", "model"), shape))
     # each rank holds its placement's block, and its rows of the batch
     split = False
@@ -116,8 +128,9 @@ def test_two_rank_step_matches_the_single_device_reference(tmp_path, case):
             np.testing.assert_array_equal(ranks[r][f"after/{path}"], block, err_msg=path)
             np.testing.assert_array_equal(ranks[r][key], ranks[0][key], err_msg=path)
     assert split, "no leaf is split over the mesh"
-    for r in range(2):
-        rows = batch["tokens"] if sizes["data"] == 1 else batch["tokens"][2 * r:2 * r + 2]
+    for r in range(world):
+        d = r // sizes["model"]
+        rows = batch["tokens"] if sizes["data"] == 1 else batch["tokens"][2 * d:2 * d + 2]
         np.testing.assert_array_equal(ranks[r]["rows/tokens"], rows)
     got, met = unflatten(ranks[0], "whole"), unflatten(ranks[0], "metric")
     assert sorted(met) == sorted(wmet)
@@ -144,11 +157,28 @@ def test_serve_builders_over_two_ranks(tmp_path, shape):
     """The serve builders' ``jit_for`` on each rank's blocks (params over
     "model" or "data", the cache's batch over "data" and length over
     "model", the tokens' batch over "data") gives the logits of ``fn`` on
-    the whole trees, bit for bit, and writes each rank's cache block in
-    place."""
-    for r, flags in enumerate(spawn(serve_rank, 2, tmp_path, shape)):
-        assert all(bool(v) for v in flags.values()), (r, flags)
-        assert len(flags) == 7
+    the whole trees, and writes each rank's cache block in place.  Bit for
+    bit where a rank computes what ``fn`` computes: prefill on the
+    model-only mesh, its parameters gathered one layer at a time.  A rank
+    of the data-only mesh computes its own row (the CPU's one-row products
+    round apart from the two-row ones), and decode over the KV sequence
+    split across "model" merges the ranks' partial softmaxes by
+    log-sum-exp: those are held to ``fn`` within
+    tests/test_torch_llm_serve.py's float32 tolerance."""
+    for r, out in enumerate(spawn(serve_rank, 2, tmp_path, shape)):
+        pairs = [("prefill", shape == (1, 2))]
+        for i in range(3):
+            assert bool(out[f"decode{i}/in_place"]), (r, i)
+            pairs += [(f"decode{i}", False)] + [(f"decode{i}/cache/{k}", False)
+                                                for k in ("k", "v")]
+        for what, exact in pairs:
+            got, want = out[f"{what}/got"], out[f"{what}/want"]
+            if exact:
+                np.testing.assert_array_equal(got, want, err_msg=f"{r} {what}")
+            else:
+                np.testing.assert_allclose(got, want, rtol=SERVE_RTOL,
+                                           atol=SERVE_ATOL_SCALE * float(np.abs(want).max()),
+                                           err_msg=f"{r} {what}")
 
 
 def test_a_single_process_gets_a_world_of_one():
