@@ -340,11 +340,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  off), ``batch_at``'s data.  (a) One process, mesh
                  (1, 1, 1) on ("pod", "data", "model"): from one state,
                  3 dense steps (no ``grad_compress``: the normal branch)
-                 and 3 ``topk32`` steps (``pod_compressed_grads``, no
-                 exchange with one pod), each synchronized; ms per step,
-                 the top-k's share of a compressed step (CUDA events
-                 around each ``topk_compress`` and ``topk_decompress``
-                 call), and the bytes one pod would send a step: 4 N dense
+                 and 3 ``topk32`` steps (``compress_blocks``, each leaf one
+                 piece, no exchange with one pod), each synchronized; ms
+                 per step, the top-k's share of a compressed step (CUDA
+                 events around each piece's ``_compress_piece``: its
+                 selection, what it sends and its residual), and the bytes
+                 one pod would send a step: 4 N dense
                  against the payload's 8 sum(nb k) (tiny leaves dense).  At
                  the first compressed step (whose loss is the dense
                  one's), in every leaf compressed: what is sent plus the
@@ -384,8 +385,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  decode_32k --mesh both`` on the default device, in a
                  subprocess: exit 0, both cells' JSONs applicable and
                  without an error, their per-device flops, bytes,
-                 collective bytes and peak printed.  None of the six
-                 kernels runs on this path: the launch counts must stay 0.
+                 collective bytes and peak printed; (e) rank 0 of
+                 qwen3-32b's decode_32k on the 16x16 mesh counted and run
+                 on the card (``--run``: a 256-rank world on the ``fake``
+                 backend), its peak within 25% of the count's and under
+                 the card's memory; (f) rank 0 of qwen3-32b's train_4k
+                 ``topk32`` step on the 2x16x16 mesh, its 64 layers cut to
+                 ``COMPRESS_LAYERS`` (full width, 8 rows a rank in 4
+                 micro-batches), one step on the card in a 512-rank fake
+                 world (:func:`compress_rank`): its peak under the card's
+                 memory and within 25% of the host count recorded in
+                 PERF.md (``COMPRESS_COUNTED_PEAK``), the compress pass's
+                 seconds (CUDA events), peak and pod exchanges printed,
+                 the exchanges the plan's batches and the loss's and ce's.
+                 (d), (e) and (f) run in processes of their own, started
+                 before mesh_path.  None of the six kernels runs on this
+                 path: the launch counts must stay 0.
    A kernel's launch count on a path is its wrapper's
    ``cz_kernel_calls_total{device="cuda"}`` series from repro_torch.obs,
    which the wrapper adds one to where its launch succeeded and nowhere
@@ -3387,40 +3402,38 @@ def phase_mesh(torch, tmp: str, sides: list[dict]) -> dict:
     del dense
     mark("dense")
 
-    # (a) topk32 steps: each top-k call between CUDA events, the first
-    # step's compressions and leaves kept for the checks
-    compress, decompress, one_small = gc.topk_compress, gc.topk_decompress, gc._one_small
+    # (a) topk32 steps: each piece's top-k between CUDA events (on one
+    # device each leaf is one piece), the first step's grads, corrected
+    # grads and what each sends and keeps, for the checks
+    corrected, piece = gc._corrected, gc._compress_piece
+    grads = []
 
-    def timed(fn, keep):
-        def call(*args):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            out = fn(*args)
-            b.record()
-            events.append((a, b))
-            if keep and seen["first"]:
-                seen[keep].append((args, out))
-            return out
-        return call
-
-    def kept_small(g, r, *rest):
+    def kept_corrected(g, r):
         # r is the state's residual, which the donated step then overwrites
-        zero = seen["first"] and not r.any()
-        out = one_small(g, r, *rest)
         if seen["first"]:
-            seen["small"].append(((g, zero), out))
+            grads.append((g, not r.any()))
+        return corrected(g, r)
+
+    def timed_piece(x, units, bl, ratio):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        vals, idx, sent, res = out = piece(x, units, bl, ratio)
+        b.record()
+        events.append((a, b))
+        if seen["first"]:
+            seen["compress"].append(((x, ratio), (vals, idx)))
+            seen["small"].append((grads.pop(0), (sent, res)))
         return out
 
     _, topk_for, _ = build_train_step(cfg, mesh, settings=st, opt=opt,
                                       grad_compress=MESH_METHOD)
     comp = init
-    gc.topk_compress, gc.topk_decompress = timed(compress, "compress"), timed(decompress, "")
-    gc._one_small = kept_small
+    gc._corrected, gc._compress_piece = kept_corrected, timed_piece
     try:
         (state, cmet, topk_step_ms, topk_losses, topk_ms), topk_s, _ = counted(
             {}, "topk32 steps", lambda: run(comp, topk_for))
     finally:
-        gc.topk_compress, gc.topk_decompress, gc._one_small = compress, decompress, one_small
+        gc._corrected, gc._compress_piece = corrected, piece
     check(all(math.isfinite(x) for x in topk_losses)
           and cmet["grad_compress_ratio"].item() == MESH_RATIO
           and cmet["grad_compress_leaves"].item() == len(leaf_sizes),
@@ -3496,6 +3509,15 @@ DRYRUN_PEAK_RTOL = 0.25
 # holds (an 80 GB H100)
 RANK_ARCH = "qwen3-32b"
 CARD_BYTES = 80e9
+# dryrun_path (f): rank 0 of RANK_ARCH's train_4k topk32 step on the 2x16x16
+# mesh, its depth cut from 64 layers to this (full width, the shape's 8 rows
+# a rank in 4 micro-batches)
+COMPRESS_LAYERS = 2
+# (f)'s count: ``python -m repro_torch.launch.dryrun --arch qwen3-32b --shape
+# train_4k --mesh multi --grad-compress topk32 --layers 2 --device cpu``'s
+# argument_bytes + temp_bytes (PERF.md section 6, PR 30).  Counting takes
+# over a minute, more than the phase's budget, so the run is held to this.
+COMPRESS_COUNTED_PEAK = 12628279708
 
 
 def _dryrun_cli(tmp: str, name: str, args: list[str]):
@@ -3524,21 +3546,104 @@ def _finish(proc, logs) -> list[str]:
 
 
 def start_dryrun_clis(tmp: str) -> dict:
-    """dryrun_path's two CLI processes, started before mesh_path so that
+    """dryrun_path's three processes, started before mesh_path so that
     their imports (most of their time) run beside it: (d) the CLI over
     decode_32k on both production meshes, (e) rank 0 of qwen3-32b's
-    decode_32k on the 16x16 mesh, counted and then run on the card."""
+    decode_32k on the 16x16 mesh, counted and then run on the card, (f)
+    rank 0 of its train_4k topk32 step on the 2x16x16 mesh, cut to
+    ``COMPRESS_LAYERS`` layers, run on the card (:func:`compress_rank`)."""
     t0 = time.perf_counter()
+    out_dir = os.path.join(tmp, "compress_rank")
+    os.makedirs(out_dir, exist_ok=True)
+    logs = [open(os.path.join(out_dir, n), "w+") for n in ("stdout", "stderr")]
+    argv = [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.compress_rank(sys.argv[1])",
+            out_dir]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     return {"t0": t0,
             "d": _dryrun_cli(tmp, "dryrun", [
                 "--arch", "smollm-135m", "--shape", "decode_32k", "--mesh", "both"]),
             "e": _dryrun_cli(tmp, "dryrun_rank", [
-                "--arch", RANK_ARCH, "--shape", "decode_32k", "--mesh", "single", "--run"])}
+                "--arch", RANK_ARCH, "--shape", "decode_32k", "--mesh", "single", "--run"]),
+            "f": (subprocess.Popen(argv, env=env, cwd=ROOT, stdout=logs[0], stderr=logs[1]),
+                  out_dir, argv, logs)}
+
+
+def compress_rank(out_dir: str) -> None:
+    """dryrun_path (f), in a process of its own: rank 0 of ``RANK_ARCH``'s
+    train_4k ``topk32`` step on the 2x16x16 mesh, cut to
+    ``COMPRESS_LAYERS`` layers, run once on the card by
+    ``launch.dryrun.run_cell`` (random blocks of the state, token ids 0, a
+    512-rank world on the ``fake`` backend: the collectives return at once,
+    the pods' exchange leaves this pod's payload).  The compress pass
+    (``grad_compress.compress_blocks``, wrapped) between CUDA events, its
+    peak (the peak stats reset at its start, the step's peak so far kept)
+    and its pod exchanges (``_pod_gather`` calls) beside the plan's; writes
+    ``compress_rank.json``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import param_specs
+    from repro_torch.train import grad_compress as gc
+    from repro_torch.train.sharding import _zip_map
+    from repro_torch.train.step import train_state_shardings
+
+    t0 = time.perf_counter()
+    dryrun._start_fake_world(512)
+    try:
+        mesh = make_production_mesh(multi_pod=True, device="cuda")
+        cfg = dataclasses.replace(ARCHS[RANK_ARCH], n_layers=COMPRESS_LAYERS)
+        moment_sh = train_state_shardings(cfg, mesh, grad_compress="topk32")["m"]
+        plan = gc.compress_plan(_zip_map(lambda s, sh: torch.empty(
+            sh.shard_shape(s.shape), device="meta"), param_specs(cfg), moment_sh), moment_sh)
+        exchanges, passes = [0], []
+        gather, compress = gc._pod_gather, gc.compress_blocks
+
+        def counted_gather(*args):
+            exchanges[0] += 1
+            return gather(*args)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = compress(*args, **kwargs)
+            end.record()
+            torch.cuda.synchronize()
+            passes.append({"ms": start.elapsed_time(end),
+                           "peak": torch.cuda.max_memory_allocated(), "step_before": before,
+                           "exchanges": exchanges[0]})
+            return out
+
+        gc._pod_gather, gc.compress_blocks = counted_gather, timed
+        run = dryrun.run_cell(cfg, SHAPES["train_4k"], mesh,
+                              dryrun._settings(dryrun.parser().parse_args([])),
+                              grad_compress="topk32", steps=1)
+    finally:
+        dist.destroy_process_group()
+    (one,) = passes
+    with open(os.path.join(out_dir, "compress_rank.json"), "w") as f:
+        json.dump({"step_seconds": run["seconds"], "micro_batches": run["micro_batches"],
+                   "argument_bytes": run["argument_bytes"],
+                   "max_memory_allocated": max(run["max_memory_allocated"], one["step_before"]),
+                   "compress": one, "leaves": len(plan),
+                   "pieces": sum(len(p.pieces) for p in plan.values()),
+                   "largest_piece": max(q.elements for p in plan.values() for q in p.pieces),
+                   "planned_exchanges": sum(1 if p.tiny else len(p.batches)
+                                            for p in plan.values()),
+                   "process_s": time.perf_counter() - t0}, f)
 
 
 def stop_dryrun_clis(clis: dict) -> None:
-    """Ends the two processes if they still run (a phase before failed)."""
-    for key in ("d", "e"):
+    """Ends the three processes if they still run (a phase before failed)."""
+    for key in ("d", "e", "f"):
         proc, _, _, logs = clis[key]
         if not logs[0].closed:
             _finish(proc, logs)
@@ -3551,8 +3656,10 @@ def phase_dryrun(torch, tmp: str, sides: list[dict], train_ms: float, clis: dict
     production meshes in a subprocess (d), and in another (e) rank 0 of
     qwen3-32b's decode_32k on the 16x16 mesh counted and then run on the
     card: real blocks of its parameters and cache, a 256-rank world on the
-    ``fake`` backend, its peak against the count's.  ``clis`` are (d) and
-    (e), started earlier (:func:`start_dryrun_clis`)."""
+    ``fake`` backend, its peak against the count's; in a third (f) rank 0
+    of its train_4k topk32 step on the 2x16x16 mesh, cut in depth, run on
+    the card.  ``clis`` are (d), (e) and (f), started earlier
+    (:func:`start_dryrun_clis`)."""
     from repro_torch.configs import ARCHS, ShapeConfig
 
     counted, launched = _launch_counter("dryrun_path", sides)
@@ -3564,21 +3671,30 @@ def phase_dryrun(torch, tmp: str, sides: list[dict], train_ms: float, clis: dict
     t_cli = clis["t0"]
     proc, out_dir, argv, logs = clis["d"]
     rank_proc, rank_dir, rank_argv, rank_logs = clis["e"]
+    comp_proc, comp_dir, comp_argv, comp_logs = clis["f"]
     try:
         res = _dryrun_in_process(torch, counted, cfg, st, opt, mesh, shape, train_ms)
         _, wait_s, _ = counted({}, "the CLI", lambda: proc.wait(timeout=300))
         cli_s = time.perf_counter() - t_cli
         _, rank_wait_s, _ = counted({}, "the rank's step", lambda: rank_proc.wait(timeout=300))
         rank_s = time.perf_counter() - t_cli
+        _, comp_wait_s, _ = counted({}, "the compressed rank's step",
+                                    lambda: comp_proc.wait(timeout=300))
+        comp_s = time.perf_counter() - t_cli
     finally:
         printed = _finish(proc, logs)
         rank_printed = _finish(rank_proc, rank_logs)
+        comp_printed = _finish(comp_proc, comp_logs)
     check(proc.returncode == 0, f"dryrun_path: the CLI exited {proc.returncode}: "
                                 f"{printed[0][-2000:]} {printed[1][-2000:]}")
     check(rank_proc.returncode == 0,
           f"dryrun_path: the rank's run exited {rank_proc.returncode}: "
           f"{rank_printed[0][-2000:]} {rank_printed[1][-2000:]}")
+    check(comp_proc.returncode == 0,
+          f"dryrun_path: the compressed rank's run exited {comp_proc.returncode}: "
+          f"{comp_printed[0][-2000:]} {comp_printed[1][-2000:]}")
     rank = _rank_run(torch, rank_dir, rank_argv, rank_printed[0], rank_s, rank_wait_s)
+    compressed = _compress_run(torch, comp_dir, comp_argv, comp_s, comp_wait_s)
     cells = {}
     for mesh_kind, n in (("single", 256), ("multi", 512)):
         with open(os.path.join(out_dir, f"smollm-135m__decode_32k__{mesh_kind}.json")) as f:
@@ -3599,7 +3715,41 @@ def phase_dryrun(torch, tmp: str, sides: list[dict], train_ms: float, clis: dict
               f"{cells[mesh_kind]['peak_bytes']} B a device, over 80 GB")
     return {**res, "cli": {"argv": argv[1:], "seconds": cli_s, "waited_s": wait_s,
                            "lines": printed[0].splitlines(), "cells": cells},
-            "rank_step": rank, **launched}
+            "rank_step": rank, "compressed_rank_step": compressed, **launched}
+
+
+def _compress_run(torch, out_dir: str, argv: list, seconds: float, waited_s: float) -> dict:
+    """(f): the cut train_4k topk32 rank's step on the card: its peak under
+    the card's memory and within ``DRYRUN_PEAK_RTOL`` of its count, its
+    pod exchanges the plan's and the loss's and ce's."""
+    with open(os.path.join(out_dir, "compress_rank.json")) as f:
+        run = json.load(f)
+    peak, one = run["max_memory_allocated"], run["compress"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(peak < min(total, CARD_BYTES),
+          f"dryrun_path: {RANK_ARCH} train_4k topk32 rank 0 ({COMPRESS_LAYERS} layers) peaks "
+          f"at {peak} B, over the card's {total}")
+    ratio = peak / COMPRESS_COUNTED_PEAK
+    check(abs(ratio - 1) <= DRYRUN_PEAK_RTOL,
+          f"dryrun_path: {RANK_ARCH} train_4k topk32 rank 0 peaks at {peak} B on the card, "
+          f"counted {COMPRESS_COUNTED_PEAK} (PERF.md): {ratio}")
+    # the leaves' batches, and the loss and ce (the micro-batches' metric)
+    check(one["exchanges"] == run["planned_exchanges"] + 2
+          and one["exchanges"] <= 4 * run["leaves"],
+          f"dryrun_path: the compress pass made {one['exchanges']} pod exchanges, planned "
+          f"{run['planned_exchanges']} for {run['leaves']} leaves")
+    print(f"dryrun_path: {RANK_ARCH} train_4k topk32 rank 0 ({COMPRESS_LAYERS} layers) "
+          f"compress pass: {one['ms'] / 1e3} s, peak {one['peak']} B, {one['exchanges']} "
+          f"pod exchanges ({run['pieces']} pieces, the largest {run['largest_piece']} "
+          "values)", flush=True)
+    print(f"dryrun_path: {RANK_ARCH} train_4k topk32 rank 0 on the card: "
+          f"max_memory_allocated {peak} B (counted {COMPRESS_COUNTED_PEAK}, ratio {ratio}), "
+          f"step {run['step_seconds']} s, process {seconds} s", flush=True)
+    return {"arch": RANK_ARCH, "shape": "train_4k", "mesh": "multi", "grad_compress": "topk32",
+            "reduced": {"n_layers": COMPRESS_LAYERS}, "argv": argv[1:], **run,
+            "counted_peak_bytes": COMPRESS_COUNTED_PEAK, "ratio": ratio,
+            "rtol": DRYRUN_PEAK_RTOL, "card_total_memory": total, "seconds": seconds,
+            "waited_s": waited_s}
 
 
 def _rank_run(torch, out_dir: str, argv: list, stdout: str, seconds: float,

@@ -4,17 +4,20 @@ Byte shuffling transposes the byte planes of a homogeneous value stream so
 that "boring" high bytes group together, which improves the lossless stage.
 Bit zeroing clears the least significant mantissa bits of detail
 coefficients (Z4/Z8 in the paper).  These run on host byte buffers at the
-I/O boundary; their output is byte-identical to the reference's.
+I/O boundary, :func:`zero_low_bits` on tensors of any device; their output
+is byte-identical to the reference's.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = [
     "byte_shuffle",
     "byte_unshuffle",
     "bit_shuffle",
     "bit_unshuffle",
+    "zero_low_bits",
     "zero_low_bits_np",
 ]
 
@@ -53,3 +56,14 @@ def zero_low_bits_np(values: np.ndarray, nbits: int) -> np.ndarray:
     u = values.astype(np.float32).view(np.uint32)
     u = u & np.uint32(~((1 << nbits) - 1) & 0xFFFFFFFF)
     return u.view(np.float32)
+
+
+def zero_low_bits(values: torch.Tensor, nbits: int) -> torch.Tensor:
+    """Tensor variant of :func:`zero_low_bits_np`: the float32 values'
+    bits as int32, the mask applied (subnormals and signed zeros kept as
+    bits), on the values' device."""
+    if nbits == 0:
+        return values
+    mask = ~((1 << nbits) - 1) & 0xFFFFFFFF
+    mask -= (mask >> 31) << 32          # the same 32 bits as a signed int32
+    return (values.to(torch.float32).view(torch.int32) & mask).view(torch.float32)

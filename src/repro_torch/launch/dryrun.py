@@ -30,11 +30,22 @@ reference's keys in its order.  What stands in for XLA's numbers:
   call is counted, loop bodies included, so there is no separate
   loop-blind count (``unknown_trip_whiles`` is 0).
 
+``--layers N`` cuts a config's depth to N layers (recorded under
+``reduced``).  ``--compress-pass`` counts, instead of whole steps, the
+compressed branch's compress pass alone (:func:`count_compress`: this
+rank's blocks of the pod's gradients and of the residual through
+``grad_compress.compress_blocks``) and writes
+``<out>/<arch>__compress__<mesh>.json``.
+
 Usage:
     python -m repro_torch.launch.dryrun --arch qwen3-32b --shape train_4k --mesh single
     python -m repro_torch.launch.dryrun --all [--skip-existing] [--mesh both]
     python -m repro_torch.launch.dryrun --arch smollm-135m --shape decode_32k --device cpu
     python -m repro_torch.launch.dryrun --arch qwen3-32b --shape decode_32k --mesh single --run
+    python -m repro_torch.launch.dryrun --arch qwen3-32b --shape train_4k --mesh multi \
+        --grad-compress topk32 --device cpu
+    python -m repro_torch.launch.dryrun --compress-pass --grad-compress topk32 --mesh multi \
+        --device cpu
 
 Importing this module starts no process group and sets no environment
 variable.
@@ -59,11 +70,12 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import ModelSettings, count_params, input_batch_specs, param_specs
 from repro_torch.models.costs import detailed_flops, model_flops
 from repro_torch.serve.step import build_decode_step, build_prefill_step
+from repro_torch.train import grad_compress as gc
 from repro_torch.train.sharding import batch_shardings, cache_shardings, param_shardings
 from repro_torch.train.optim import OptConfig
-from repro_torch.train.step import build_train_step, train_state_specs
+from repro_torch.train.step import build_train_step, train_state_shardings, train_state_specs
 
-__all__ = ["CellCount", "count_cell", "run_cell", "lower_cell", "main"]
+__all__ = ["CellCount", "count_cell", "count_compress", "run_cell", "lower_cell", "main"]
 
 _PARAM_DTYPES = {"f32": None, "bf16": torch.bfloat16}
 
@@ -171,6 +183,43 @@ def count_cell(cfg, shape, mesh, settings: ModelSettings = ModelSettings(), *,
                      peak_bytes=argument_bytes + counter.peak_bytes, micro_batches=micro)
 
 
+def count_compress(cfg, mesh, method: str = "topk32") -> dict:
+    """The compressed branch's compress pass alone on this rank, counted as
+    :func:`count_cell` counts a step: fake blocks of the pod's mean
+    gradients and of the residual (float32, the moments' placement)
+    through :func:`grad_compress.compress_blocks`.  Returns its seconds,
+    the blocks' bytes, its peak (the blocks + the peak of what it
+    allocated), its collectives, and its plan: pieces, the largest piece's
+    elements, pod exchanges (the leaves' and one for the loss) and the
+    payload bytes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    dev = torch.device(mesh.device_type)
+    specs = train_state_specs(cfg, grad_compress=method)
+    sh = train_state_shardings(cfg, mesh, grad_compress=method)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        make = lambda shp, dt: torch.empty(shp, dtype=dt, device=dev)   # noqa: E731
+        grads, resid = _blocks(specs["m"], sh["m"], make), _blocks(specs["residual"],
+                                                                    sh["residual"], make)
+        loss = torch.zeros((), device=dev)
+        inputs = _storage_bytes((grads, resid, loss))
+        counter = OpCounter()
+        t0 = time.perf_counter()
+        with counter:
+            gc.compress_blocks(loss, {}, grads, resid, sh["m"], mesh, method)
+        seconds = time.perf_counter() - t0
+        plan = gc.compress_plan(grads, sh["m"], method)
+    args = sum(inputs.values())
+    pieces = [q for p in plan.values() for q in p.pieces]
+    return {"seconds": seconds, "argument_bytes": args, "peak_bytes": args + counter.peak_bytes,
+            "collectives": counter.stats.collectives,
+            "collective_bytes": counter.stats.collective_bytes,
+            "leaves": len(plan), "pieces": len(pieces),
+            "largest_piece": max((q.elements for q in pieces), default=0),
+            "exchanges": 1 + sum(1 if p.tiny else len(p.batches) for p in plan.values()),
+            "payload_bytes": gc.payload_bytes(specs["params"], method)}
+
+
 def run_cell(cfg, shape, mesh, settings: ModelSettings = ModelSettings(), *,
              sharding: str = "fsdp", param_dtype=None, grad_compress=None, micro: int = 0,
              opt: OptConfig = OptConfig(), seed: int = 0, steps: int = 2) -> dict:
@@ -232,7 +281,7 @@ def lower_cell(arch_name: str, shape_name: str, mesh_kind: str, args):
     """The reference's cell result for one (arch, shape, mesh) on the
     production mesh, counted by :func:`count_cell` in a fake world of its
     own, ended before it returns."""
-    cfg = ARCHS[arch_name]
+    cfg = _config(arch_name, args)
     shape = SHAPES[shape_name]
     ok, reason = cell_applicable(cfg, shape)
     if not ok:
@@ -301,6 +350,8 @@ def lower_cell(arch_name: str, shape_name: str, mesh_kind: str, args):
     }
     if run is not None:
         result["run"] = {**run, "counted_peak_bytes": c.peak_bytes}
+    if args.layers:
+        result["reduced"] = {"n_layers": args.layers}
     # the reference's prove-it-fits line, from the counted run
     print(f"  memory_analysis: arg={c.argument_bytes/2**30:.3f}GiB "
           f"temp={temp/2**30:.3f}GiB "
@@ -316,7 +367,30 @@ def lower_cell(arch_name: str, shape_name: str, mesh_kind: str, args):
     return result
 
 
-def main(argv=None):
+def _config(arch_name: str, args):
+    cfg = ARCHS[arch_name]
+    return dataclasses.replace(cfg, n_layers=args.layers) if args.layers else cfg
+
+
+def lower_compress(arch_name: str, mesh_kind: str, args) -> dict:
+    """:func:`count_compress` of one config on the production mesh, in a
+    fake world of its own."""
+    _start_fake_world(math.prod((2, 16, 16) if mesh_kind == "multi" else (16, 16)))
+    try:
+        mesh = make_production_mesh(multi_pod=mesh_kind == "multi", device=args.device)
+        res = count_compress(_config(arch_name, args), mesh, args.grad_compress or "topk32")
+    finally:
+        dist.destroy_process_group()
+    print(f"  compress pass: peak={res['peak_bytes'] / 2**30:.3f}GiB "
+          f"(blocks {res['argument_bytes'] / 2**30:.3f}GiB) pieces={res['pieces']} "
+          f"largest={res['largest_piece']} exchanges={res['exchanges']} "
+          f"{res['seconds']:.2f}s")
+    return {"arch": arch_name, "mesh": mesh_kind, "grad_compress": args.grad_compress or "topk32",
+            **res, **({"reduced": {"n_layers": args.layers}} if args.layers else {})}
+
+
+def parser() -> argparse.ArgumentParser:
+    """The CLI's arguments (``parser().parse_args([])``: its defaults)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
@@ -347,7 +421,15 @@ def main(argv=None):
                     help="also run rank 0's step for real on --device (random blocks; "
                          "the fake world's collectives return at once): its seconds "
                          "and peak allocation")
-    args = ap.parse_args(argv)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut each config's depth to this many layers (0 = its own)")
+    ap.add_argument("--compress-pass", action="store_true",
+                    help="count the compressed branch's compress pass alone, per config")
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
     torch_device(args.device)
 
     os.makedirs(args.out, exist_ok=True)
@@ -356,6 +438,8 @@ def main(argv=None):
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
 
     failures = []
+    if args.compress_pass:
+        shapes = ["compress"]
     for arch in archs:
         for shape in shapes:
             for mesh_kind in meshes:
@@ -366,7 +450,8 @@ def main(argv=None):
                     continue
                 print(f"[cell] {arch} x {shape} x {mesh_kind}", flush=True)
                 try:
-                    res = lower_cell(arch, shape, mesh_kind, args)
+                    res = (lower_compress(arch, mesh_kind, args) if args.compress_pass
+                           else lower_cell(arch, shape, mesh_kind, args))
                 except Exception as e:  # noqa: BLE001 - record and continue
                     traceback.print_exc()
                     res = {"arch": arch, "shape": shape, "mesh": mesh_kind,

@@ -15,10 +15,26 @@ interconnect is the slowest link, and gradients tolerate lossy compression
   gathered across pods and scatter-added locally;
 * the unsent residual is carried to the next step (error feedback).
 
+The unit of selection is the reference's: a leaf under ``_SPLIT``
+elements whole, else each slice along dim 0; a unit is cut into
+``_BLOCK``-long blocks (the last padded with zeros) and each block keeps
+its top ``block // ratio`` entries.  On a mesh the gradients and the
+residual stay in their blocks (:func:`compress_blocks`): a rank gathers
+one *piece* at a time whole inside its pod, a run of whole units or of
+whole blocks of one unit of at most ``_PIECE`` elements, selects its
+blocks' entries as rows of one sort, and keeps only its own block of the
+new gradient and residual.  Every rank of a pod computes the same payload,
+as the reference's replicated payload.  Each block's selection is
+independent of the others, so the pieces give what the whole leaf gives,
+bit for bit; :func:`pod_compressed_grads` runs the same code over whole
+trees.
+
 The pod exchange has one transport, used always: an explicit copy of the
 payload to the host and ``all_gather`` over the mesh's "pod" group there
 (gloo takes CPU tensors; NCCL refuses two ranks on one card), then back to
-the payload's device.  On a mesh of one pod there is no exchange.
+the payload's device.  A leaf's pieces share one exchange up to
+``_EXCHANGE`` bytes of payload.  On a mesh of one pod there is no
+exchange.
 
 Selection is a stable descending sort of |rows|, so ties go to the lower
 index as ``lax.top_k``'s do, and the card picks what the CPU picks.  The
@@ -30,22 +46,69 @@ compiles a division by a constant) flush here on every device.
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
-from repro_torch.core._xla import flush
+from repro_torch.core._xla import flush, flush_
 from repro_torch.core.threshold import topk_largest
 from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models.common import tree_leaves, tree_map
 
 from .optim import _recip, _unzip
+from .sharding import NamedSharding, P
 
-__all__ = ["pod_compressed_grads", "topk_compress", "topk_decompress", "payload_bytes"]
+__all__ = ["pod_compressed_grads", "compress_blocks", "compress_plan", "topk_compress",
+           "topk_decompress", "payload_bytes"]
 
 
-_BLOCK = 1 << 20   # top-k block length (paper-style block-structured selection)
-_SPLIT = 1 << 28   # leaves this large are compressed slice by slice along dim 0
+_BLOCK = 1 << 20      # top-k block length (paper-style block-structured selection)
+_SPLIT = 1 << 28      # leaves this large are compressed slice by slice along dim 0
+_PIECE = 1 << 28      # the most elements a rank gathers whole and sorts in one call
+_EXCHANGE = 1 << 29   # the payload bytes after which a leaf's pieces are exchanged
+
+
+def _ratio(method: str) -> int:
+    return int(method.replace("topk", "") or 32)
+
+
+def _rows(x: torch.Tensor, units: int, bl: int) -> torch.Tensor:
+    """``x`` as rows of ``bl``-long blocks: each of its ``units`` (equal
+    runs of ``x`` flattened) padded with zeros to whole blocks."""
+    flat = x.reshape(units, -1).to(torch.float32)
+    pad = (-flat.shape[1]) % bl
+    if pad:
+        flat = F.pad(flat, (0, pad))
+    return flat.reshape(-1, bl)
+
+
+def _unrows(rows: torch.Tensor, units: int, shape) -> torch.Tensor:
+    """Inverse of :func:`_rows`: the padding dropped, ``shape`` restored."""
+    return rows.reshape(units, -1)[:, :math.prod(shape) // units].reshape(shape)
+
+
+def _select(rows: torch.Tensor, ratio: int):
+    """Each row's top ``bl // ratio`` entries by |value|: (vals float32,
+    idx int32), largest first; sorted ``_PIECE`` elements' rows at a
+    time."""
+    k, step = max(1, rows.shape[1] // ratio), max(1, _PIECE // rows.shape[1])
+    out = []
+    for part in rows.split(step):
+        idx = topk_largest(part.abs(), k)
+        out.append((torch.gather(part, 1, idx), idx.to(torch.int32)))
+    if len(out) == 1:
+        return out[0]
+    return torch.cat([v for v, _ in out]), torch.cat([i for _, i in out])
+
+
+def _scatter(vals: torch.Tensor, idx: torch.Tensor, bl: int) -> torch.Tensor:
+    """The dense rows: each row's kept entries added into zeros (XLA's
+    ``0 + v``: subnormals flushed, -0 to +0)."""
+    rows = torch.zeros((vals.shape[0], bl), dtype=torch.float32, device=vals.device)
+    return rows.scatter_(1, idx.long(), flush(vals) + 0.0)
 
 
 def topk_compress(g: torch.Tensor, ratio: int):
@@ -53,30 +116,28 @@ def topk_compress(g: torch.Tensor, ratio: int):
     ``_BLOCK``-long blocks (the last padded with zeros) and each keeps its
     top ``block // ratio`` entries.  Returns (vals (nb, k) float32, idx
     int32 (nb, k) block-local), each row largest |value| first."""
-    flat = g.reshape(-1).to(torch.float32)
-    n = flat.numel()
-    bl = min(_BLOCK, n)
-    pad = (-n) % bl
-    if pad:
-        flat = torch.cat([flat, flat.new_zeros(pad)])
-    rows = flat.reshape(-1, bl)
-    k = max(1, bl // ratio)
-    idx = topk_largest(rows.abs(), k)
-    return torch.gather(rows, 1, idx), idx.to(torch.int32)
+    return _select(_rows(g, 1, min(_BLOCK, g.numel())), ratio)
 
 
 def topk_decompress(vals: torch.Tensor, idx: torch.Tensor, shape) -> torch.Tensor:
     """The dense float32 tensor of ``shape``: each block's kept entries
-    added into zeros (XLA's ``0 + v``: subnormals flushed, -0 to +0), the
-    padding dropped."""
-    n = 1
-    for s in shape:
-        n *= s
-    bl = min(_BLOCK, n)
-    nb = -(-n // bl)
-    rows = torch.zeros((nb, bl), dtype=torch.float32, device=vals.device)
-    rows.scatter_(1, idx.long(), flush(vals) + 0.0)
-    return rows.reshape(-1)[:n].reshape(shape)
+    added into zeros, the padding dropped."""
+    return _unrows(_scatter(vals, idx, min(_BLOCK, math.prod(shape))), 1, shape)
+
+
+def _corrected(g: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """The error-feedback-corrected gradient ``g + r`` in float32."""
+    out = flush(g.to(torch.float32))
+    out += flush(r)
+    return flush_(out)
+
+
+def _compress_piece(corrected: torch.Tensor, units: int, bl: int, ratio: int):
+    """A piece's top-k, shared by every path: (vals, idx) of its rows, what
+    this pod sends (dense, ``corrected``'s shape) and the new residual."""
+    vals, idx = _select(_rows(corrected, units, bl), ratio)
+    sent = _unrows(_scatter(vals, idx, bl), units, corrected.shape)
+    return vals, idx, sent, corrected - sent
 
 
 def payload_bytes(grads, method: str = "topk32") -> int:
@@ -85,7 +146,7 @@ def payload_bytes(grads, method: str = "topk32") -> int:
     tiny leaf whole in its dtype; every other leaf, or each slice along dim
     0 of a huge one, as each block's ``block // ratio`` float32 values and
     int32 indices."""
-    ratio = int(method.replace("topk", "") or 32)
+    ratio = _ratio(method)
 
     def one(n: int) -> int:
         bl = min(_BLOCK, n)
@@ -103,11 +164,126 @@ def payload_bytes(grads, method: str = "topk32") -> int:
     return total
 
 
+@dataclasses.dataclass(frozen=True)
+class Piece:
+    """What a rank gathers whole at once: ``index`` cuts its block (every
+    dim kept); gathered, it has ``shape`` and holds ``units`` units' blocks
+    in ``rows`` rows."""
+    index: tuple
+    units: int
+    shape: tuple
+    rows: int
+
+    @property
+    def elements(self) -> int:
+        return math.prod(self.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPlan:
+    """A leaf's compression on a rank: ``tiny`` (sent dense), else its
+    block length ``bl``, its ``pieces`` and their grouping into pod
+    exchanges (``batches``, lists of indices into ``pieces``)."""
+    tiny: bool
+    bl: int
+    pieces: tuple
+    batches: tuple
+
+
+def _divisors(n: int) -> list[int]:
+    """``n``'s divisors, largest first."""
+    return [c for c in range(n, 0, -1) if n % c == 0]
+
+
+def _cut(shape, counts, local, first: int, bl: int):
+    """A unit's pieces of whole ``bl``-blocks, cut along one dim ``d`` from
+    ``first`` on: each dim before ``d`` at one index of this rank's block
+    (a split dim's index brings its ranks' parts along), a run along ``d``
+    whose every rank's part holds whole blocks, the dims after ``d`` whole.
+    The longest run that fits ``_PIECE`` at the first dim that has one,
+    else the smallest run there is (where a split cuts through blocks);
+    ``None`` where no run holds whole blocks."""
+    fits, least = None, None
+    for d in range(first, len(shape)):
+        inner, lead = math.prod(shape[d + 1:]), math.prod(counts[:d])
+        runs = [c for c in _divisors(local[d]) if (c * inner) % bl == 0]
+        fit = [c for c in runs if lead * c * counts[d] * inner <= _PIECE]
+        if fit:
+            fits = (d, fit[0])
+            break
+        if runs and (least is None or lead * runs[-1] * counts[d] * inner < least[2]):
+            least = (d, runs[-1], lead * runs[-1] * counts[d] * inner)
+    if fits is None and least is None:
+        return None
+    d, c = fits or least[:2]
+    rest = (slice(None),) * (len(shape) - d - 1)
+    heads = itertools.product(*(range(n) for n in local[:d]))
+    return [tuple(slice(i, i + 1) for i in head) + (slice(a, a + c),) + rest
+            for head in heads for a in range(0, local[d], c)]
+
+
+def _leaf_plan(shape, counts, ratio: int) -> LeafPlan:
+    """The pieces of a leaf of global ``shape`` whose dims its sharding
+    splits into ``counts`` parts.  The units are the reference's: the leaf
+    whole under ``_SPLIT`` elements, else each dim-0 slice.  A piece is a
+    run of whole units along dim 0 (the longest that fits ``_PIECE``, one
+    where none does), or where one unit exceeds ``_PIECE`` and is a whole
+    number of ``_BLOCK``-blocks, a run of its blocks (:func:`_cut`)."""
+    n = math.prod(shape)
+    if n < 4 * ratio:
+        return LeafPlan(True, 0, (), ())
+    sliced = n >= _SPLIT
+    unit = n // shape[0] if sliced else n
+    bl = min(_BLOCK, unit)
+    local = [s // c for s, c in zip(shape, counts)]
+    rest = (slice(None),) * (len(shape) - 1)
+    cut = None
+    if unit > _PIECE and unit % bl == 0:
+        cut = _cut(shape, counts, local, int(sliced), bl)
+    if cut:
+        index, units = cut, 1
+    elif sliced:
+        c = next((c for c in _divisors(local[0]) if c * counts[0] * unit <= _PIECE), 1)
+        index, units = [(slice(a, a + c),) + rest for a in range(0, local[0], c)], c * counts[0]
+    else:
+        index, units = [(slice(None),) + rest], 1
+    pieces = []
+    for ix in index:
+        whole = tuple(len(range(*s.indices(m))) * c for s, m, c in zip(ix, local, counts))
+        rows = math.prod(whole) // bl if cut else units * -(-unit // bl)
+        pieces.append(Piece(ix, units, whole, rows))
+    k = max(1, bl // ratio)
+    batches, batch, nbytes = [], [], 0
+    for i, p in enumerate(pieces):
+        batch.append(i)
+        nbytes += 8 * p.rows * k
+        if nbytes >= _EXCHANGE:
+            batches.append(tuple(batch))
+            batch, nbytes = [], 0
+    if batch:
+        batches.append(tuple(batch))
+    return LeafPlan(False, bl, tuple(pieces), tuple(batches))
+
+
+def _plan(block, sh: NamedSharding, ratio: int) -> LeafPlan:
+    counts = [sh._block(d)[1] for d in range(block.dim())]
+    return _leaf_plan(tuple(s * c for s, c in zip(block.shape, counts)), counts, ratio)
+
+
+def compress_plan(grads, shardings, method: str = "topk32") -> dict:
+    """path -> :class:`LeafPlan` of each leaf of ``grads`` (this rank's
+    blocks, or tensors of their shapes) laid out by ``shardings``."""
+    return {path: _plan(g, sh, _ratio(method)) for (path, g), (_, sh)
+            in zip(tree_leaves(grads), tree_leaves(shardings))}
+
+
 def _pod_gather(x: torch.Tensor, group, n_pods: int) -> list[torch.Tensor]:
     """Every pod's ``x``, in pod order, on ``x``'s device: the one
     transport (a copy to the host, ``all_gather`` there, and back)."""
     host = x.detach().to("cpu").contiguous()
-    parts = [torch.empty_like(host) for _ in range(n_pods)]
+    # each part starts as this pod's: where a collective leaves its output
+    # as allocated (the dry run's ``fake`` world), the indices stay valid
+    parts = [host.clone() for _ in range(n_pods)]
     dist.all_gather(parts, host, group=group)
     return [p.to(x.device) for p in parts]
 
@@ -123,19 +299,73 @@ def _pod_mean(x: torch.Tensor, group, n_pods: int) -> torch.Tensor:
     return flush(total * _recip(n_pods)).to(x.dtype)
 
 
-def _one_small(g, r, ratio: int, group, n_pods: int):
-    corrected = flush(flush(g.to(torch.float32)) + flush(r))
-    vals, idx = topk_compress(corrected, ratio)
-    # what this pod actually transmits
-    sent = topk_decompress(vals, idx, g.shape)
-    new_r = corrected - sent
-    if n_pods == 1:
-        return sent.to(g.dtype), new_r
-    mean = None
-    for v, i in zip(_pod_gather(vals, group, n_pods), _pod_gather(idx, group, n_pods)):
-        d = topk_decompress(v, i, g.shape)
-        mean = d if mean is None else flush(mean + d)
-    return flush(mean * _recip(n_pods)).to(g.dtype), new_r
+def _compress_leaf(g, r, sh, plan: LeafPlan, ratio: int, group, n_pods: int):
+    """One leaf's (new grad block, new residual block) from this rank's
+    blocks ``g`` and ``r`` under ``sh``: piece by piece, each gathered
+    whole inside the pod, the payloads of a batch of pieces exchanged at
+    once, and only this rank's block of each result kept."""
+    if plan.tiny:                            # sent dense
+        return sh.local(_pod_mean(sh.gather(g), group, n_pods)).clone(), torch.zeros_like(r)
+    new_g, new_r = torch.empty_like(g), torch.empty_like(r)
+    k = max(1, plan.bl // ratio)
+    for batch in plan.batches:
+        sent = []
+        for piece in (plan.pieces[i] for i in batch):
+            corrected = _corrected(sh.gather(g[piece.index]), sh.gather(r[piece.index]))
+            vals, idx, mine, res = _compress_piece(corrected, piece.units, plan.bl, ratio)
+            new_r[piece.index] = sh.local(res)
+            if n_pods == 1:
+                new_g[piece.index] = sh.local(mine)
+            else:
+                sent.append(torch.cat([vals.view(torch.int32), idx], 1))
+            del corrected, vals, idx, mine, res   # one piece whole at a time
+        if n_pods == 1:
+            continue
+        payload = torch.cat(sent) if len(sent) > 1 else sent[0]
+        del sent
+        pods = _pod_gather(payload, group, n_pods)
+        del payload
+        row = 0
+        for piece in (plan.pieces[i] for i in batch):
+            mean = None
+            for part in (p[row:row + piece.rows] for p in pods):
+                d = _unrows(_scatter(part[:, :k].view(torch.float32), part[:, k:], plan.bl),
+                            piece.units, piece.shape)
+                mean = d if mean is None else flush(mean + d)
+            new_g[piece.index] = sh.local(flush(mean * _recip(n_pods)))
+            row += piece.rows
+    return new_g, new_r
+
+
+def _pod_settings(settings, n_pods: int):
+    """``settings`` inside a pod: the batch over its "data" ranks alone."""
+    return dataclasses.replace(
+        settings, batch_axes=tuple(a for a in settings.batch_axes if a != "pod"),
+        n_batch=max(1, settings.n_batch // n_pods))
+
+
+def compress_blocks(loss, metrics, grads, residual, shardings, mesh, method: str = "topk32"):
+    """Returns ((loss, metrics), grads, new_residual, compress_metrics).
+
+    ``grads`` are this pod's gradients (its "data" ranks' mean) and
+    ``residual`` its error feedback, each this rank's blocks laid out by
+    ``shardings`` (whose specs name no "pod": the blocks of one pod's ranks
+    make the whole leaf).  Each leaf is compressed piece by piece
+    (:func:`compress_plan`) and averaged over the pods; the grads and the
+    residual come back as this rank's blocks, the loss and metrics averaged
+    over the pods."""
+    ratio = _ratio(method)
+    n_pods = axis_sizes(mesh)["pod"]
+    group = mesh.get_group("pod") if n_pods > 1 else None
+    out = tree_map(lambda g, r, sh: _compress_leaf(g, r, sh, _plan(g, sh, ratio), ratio,
+                                                   group, n_pods), grads, residual, shardings)
+    loss = _pod_mean(loss, group, n_pods)
+    metrics = {k: _pod_mean(v, group, n_pods) for k, v in metrics.items()}
+    dev = loss.device
+    cmx = {"grad_compress_ratio": torch.tensor(float(ratio), device=dev),
+           "grad_compress_leaves": torch.tensor(float(sum(1 for _ in tree_leaves(grads))),
+                                                device=dev)}
+    return (loss, metrics), _unzip(out, 0), _unzip(out, 1), cmx
 
 
 def pod_compressed_grads(loss_fn, params, residual, batch, cfg, settings,
@@ -148,40 +378,13 @@ def pod_compressed_grads(loss_fn, params, residual, batch, cfg, settings,
     reference: the loss is ``lm_loss`` under ``settings`` without the
     "pod" axis.  The grads come back whole, summed over the pods' payloads
     and averaged, the residual whole, the loss and metrics averaged over
-    every batch rank."""
+    every batch rank: :func:`compress_blocks` over whole leaves."""
     from .step import _batch_mean, _value_and_grad
 
-    ratio = int(method.replace("topk", "") or 32)
-    sizes = axis_sizes(mesh)
-    n_pods = sizes["pod"]
-    group = mesh.get_group("pod") if n_pods > 1 else None
-    settings = dataclasses.replace(
-        settings,
-        batch_axes=tuple(a for a in settings.batch_axes if a != "pod"),
-        n_batch=max(1, settings.n_batch // n_pods))
-
+    settings = _pod_settings(settings, axis_sizes(mesh)["pod"])
     # this pod's gradients: its data ranks' rows, averaged within the pod
     loss, metrics, grads = _value_and_grad(params, batch, cfg, settings)
-    data = tuple(a for a in ("data",) if a in sizes)
+    data = tuple(a for a in ("data",) if a in axis_sizes(mesh))
     loss, metrics, grads = _batch_mean(loss, metrics, grads, mesh, data)
-
-    def one(g, r):
-        if g.numel() < 4 * ratio:          # tiny leaf: send dense
-            return _pod_mean(g, group, n_pods), torch.zeros_like(r)
-        if g.numel() < _SPLIT:
-            return _one_small(g, r, ratio, group, n_pods)
-        # a huge leaf goes slice by slice along its leading (layer-stack) dim
-        outs = [_one_small(gs, rs, ratio, group, n_pods)
-                for gs, rs in zip(g.reshape(g.shape[0], -1), r.reshape(r.shape[0], -1))]
-        return (torch.stack([o[0] for o in outs]).reshape(g.shape).to(g.dtype),
-                torch.stack([o[1] for o in outs]).reshape(g.shape))
-
-    out = tree_map(one, grads, residual)
-    new_grads, new_resid = _unzip(out, 0), _unzip(out, 1)
-    loss = _pod_mean(loss, group, n_pods)
-    metrics = {k: _pod_mean(v, group, n_pods) for k, v in metrics.items()}
-    n_leaves = sum(1 for _ in tree_leaves(params))
-    dev = loss.device
-    cmx = {"grad_compress_ratio": torch.tensor(float(ratio), device=dev),
-           "grad_compress_leaves": torch.tensor(float(n_leaves), device=dev)}
-    return (loss, metrics), new_grads, new_resid, cmx
+    whole = tree_map(lambda g: NamedSharding(mesh, P(*[None] * g.dim())), grads)
+    return compress_blocks(loss, metrics, grads, residual, whole, mesh, method)

@@ -18,12 +18,14 @@ backward is the hand-written one of :mod:`repro_torch.models.attention`.
 The global-norm clip sums the squares of every leaf's blocks once (a rank
 adds a leaf only where its coordinate is 0 on each axis the leaf is
 replicated over) in one all-reduce.  With ``grad_compress`` set and a
-"pod" axis present, the grads go through
-:func:`~repro_torch.train.grad_compress.pod_compressed_grads` (top-k with
-error feedback across pods), which still gathers the parameters whole and
-takes whole grads (ROADMAP §3).  On a mesh of one device every block is
-the whole tensor and the step is the single-device step: nothing is
-gathered and no collective runs.
+"pod" axis present, the backward reduces each layer's gradient over the
+pod's "data" ranks alone, and the blocks of the pod's mean gradient and of
+the residual go through
+:func:`~repro_torch.train.grad_compress.compress_blocks` (top-k with error
+feedback across pods, one piece of a leaf gathered whole inside the pod at
+a time).  On a mesh of one device every block is the whole tensor and the
+step is the single-device step: nothing is gathered and no collective
+runs.
 """
 from __future__ import annotations
 
@@ -244,7 +246,7 @@ def build_train_step(cfg, mesh, *, settings: ModelSettings = ModelSettings(),
     reference's donated buffers); ``False`` leaves them as they were.
     ``param_dtype`` sets the parameters' dtype in the state's specs and
     shardings, as in the reference."""
-    from .grad_compress import pod_compressed_grads
+    from . import grad_compress as gc
 
     sizes = axis_sizes(mesh)
     baxes = batch_axes(mesh)
@@ -266,7 +268,12 @@ def build_train_step(cfg, mesh, *, settings: ModelSettings = ModelSettings(),
         a.spec == b.spec for (_, a), (_, b)
         in zip(tree_leaves(state_sh["params"]), tree_leaves(moment_sh)))
     hybrid = cfg.family == "hybrid"
-    reduce_over = (mesh, baxes, nb)
+    # the compressed branch reduces within a pod: over its "data" ranks
+    compressed = bool(grad_compress) and multi_pod
+    if compressed:
+        settings = gc._pod_settings(settings, sizes["pod"])
+        baxes = settings.batch_axes
+    reduce_over = (mesh, baxes, settings.n_batch)
 
     def grads_one(params, batch):
         if whole_params:
@@ -293,20 +300,14 @@ def build_train_step(cfg, mesh, *, settings: ModelSettings = ModelSettings(),
         return loss, {"ce": loss}, tree_map(lambda a: a * inv, g_acc)
 
     def local_step(state, batch):
-        if grad_compress and multi_pod:
-            params = gather_tree(state["params"], state_sh["params"])
-            residual = gather_tree(state["residual"], state_sh["residual"])
-            (loss, metrics), grads, residual, cmx = pod_compressed_grads(
-                lambda p: lm_loss(p, batch, cfg, settings), params, residual, batch, cfg,
-                settings, mesh, method=grad_compress)
+        loss, metrics, grads = grads_of(state["params"], batch)
+        loss, metrics = _mean(loss, mesh, baxes), {k: _mean(v, mesh, baxes)
+                                                   for k, v in metrics.items()}
+        residual = state.get("residual")
+        if compressed:
+            (loss, metrics), grads, residual, cmx = gc.compress_blocks(
+                loss, metrics, grads, residual, moment_sh, mesh, method=grad_compress)
             metrics = {**metrics, **cmx}
-            grads = local_tree(grads, moment_sh)
-            residual = local_tree(residual, state_sh["residual"])
-        else:
-            loss, metrics, grads = grads_of(state["params"], batch)
-            loss, metrics = _mean(loss, mesh, baxes), {k: _mean(v, mesh, baxes)
-                                                       for k, v in metrics.items()}
-            residual = state.get("residual")
         with torch.no_grad():
             p = state["params"] if same_layout else _relayout(
                 state["params"], state_sh["params"], moment_sh, hybrid)

@@ -267,3 +267,74 @@ def grads_rank(rank, world, init_file, out_dir, arch, params, batch, meshes, rem
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
+
+
+def compress_rank(rank, world, init_file, out_dir, shape, grads, resid, consts, method,
+                  hybrid):
+    """``grad_compress.compress_blocks`` on mesh ``shape`` ("pod", "data",
+    "model") with the module's constants set to ``consts``, on given per-pod
+    gradients and residuals (``grads[p]``, ``resid[p]``: flat dicts of whole
+    numpy leaves): this rank's blocks of its pod's leaves in, laid out by
+    the parameters' placement rule (``param_shardings``, ``hybrid``); the
+    same on the whole leaves (the whole path).  Writes the block results
+    (``block/{g,r}/{leaf}``), the whole results (``whole/{g,r}/{leaf}``),
+    each leaf's pod exchanges (``exchanges/{leaf}``, ``_pod_gather`` calls
+    counted while the leaf is compressed, for each path), its planned
+    pieces and exchanges (``plan/{leaf}``) and the loss."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import grad_compress as gc
+    from repro_torch.train.sharding import NamedSharding, P, param_shardings
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world)
+    try:
+        for k, v in consts.items():
+            setattr(gc, k, v)
+        mesh = make_mesh(shape, ("pod", "data", "model"), device="cpu")
+        pod = mesh.get_coordinate()[0]
+        sh = param_shardings(grads[pod], mesh, hybrid=hybrid)
+        whole_g = {k: torch.from_numpy(v) for k, v in grads[pod].items()}
+        whole_r = {k: torch.from_numpy(v) for k, v in resid[pod].items()}
+        blocks_g = {k: sh[k].local(v).clone() for k, v in whole_g.items()}
+        blocks_r = {k: sh[k].local(v).clone() for k, v in whole_r.items()}
+        counts, current = {}, [None]
+        gather, leaf = gc._pod_gather, gc._compress_leaf
+
+        def counted_gather(*args):
+            counts[current[0]] = counts.get(current[0], 0) + 1
+            return gather(*args)
+
+        def named_leaf(g, r, s, *args):
+            current[0] = (tag, order.pop(0))
+            try:
+                return leaf(g, r, s, *args)
+            finally:
+                current[0] = (tag, None)   # the loss and metrics after the leaves
+
+        gc._pod_gather, gc._compress_leaf = counted_gather, named_leaf
+        out = {}
+        plan = gc.compress_plan(blocks_g, sh, method)
+        for tag, g, r, shs in (
+                ("block", blocks_g, blocks_r, sh),
+                ("whole", whole_g, whole_r,
+                 {k: NamedSharding(mesh, P(*[None] * v.dim())) for k, v in whole_g.items()})):
+            order = list(g)
+            (loss, _), new_g, new_r, cmx = gc.compress_blocks(
+                torch.tensor(float(pod)), {}, g, r, shs, mesh, method)
+            out[f"{tag}/loss"] = loss.numpy()
+            for k in g:
+                got_g, got_r = new_g[k], new_r[k]
+                if tag == "whole":
+                    got_g, got_r = sh[k].local(got_g), sh[k].local(got_r)
+                out[f"{tag}/g/{k}"] = got_g.numpy()
+                out[f"{tag}/r/{k}"] = got_r.numpy()
+                out[f"exchanges/{tag}/{k}"] = np.array(counts.get((tag, k), 0))
+            out[f"exchanges/{tag}/loss"] = np.array(counts.get((tag, None), 0))
+        for (path, p) in plan.items():
+            out[f"plan/{path[0]}"] = np.array(
+                [1 if p.tiny else len(p.batches), len(p.pieces),
+                 max((q.elements for q in p.pieces), default=0)])
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()

@@ -176,26 +176,28 @@ def _cell(cfg, kind, mesh, nb, **kw) -> dict:
         state_sh = train_state_shardings(cfg, mesh, grad_compress=gcomp)
         args = _block_bytes(specs, state_sh) + _block_bytes(batch, batch_shardings(batch, mesh))
         scalars = 1 + len(_metrics(cfg))            # the loss and each metric
+        # each layer gathered in the forward and again in the remat backward
+        add("all-gather", _gather_bytes(specs["params"], state_sh["params"], sizes,
+                                        per_layer=2 if SETTINGS.remat != "none" else 1))
+        # compressed: the grads and the loss reduce over the pod's "data" ranks
+        reduce = tuple(a for a in baxes if not gcomp or a != "pod")
+        add("all-reduce", (4 * scalars * len(reduce), scalars * len(reduce)))
+        for op, pair in _grad_reduce_bytes(specs["params"], state_sh["m"], sizes,
+                                           reduce).items():
+            add(op, pair)
         if gcomp:
-            add("all-gather", _gather_bytes(specs["params"], state_sh["params"], sizes))
-            # whole grads and the residual: the mean over "data", then the pods'
-            # exchange, each pod's payload and its loss and metrics gathered
+            # each leaf's grad block (and the residual's, but a tiny leaf's) gathered
+            # whole inside the pod, one piece each at these sizes; then the pods'
+            # exchange: each leaf's payload, and the loss and metrics
             leaves = [s for _, s in tree_leaves(specs["params"])]
-            add("all-gather", _gather_bytes(specs["residual"], state_sh["residual"], sizes))
-            add("all-reduce", (4 * (scalars + sum(s.numel() for s in leaves)),
-                               scalars + len(leaves)))
             ratio = int(gcomp.replace("topk", ""))
-            sends = scalars + sum(1 if s.numel() < 4 * ratio else 2 for s in leaves)
+            assert all(s.numel() < min(gc._SPLIT, gc._PIECE) for s in leaves)
+            big = {p: s for p, s in tree_leaves(specs["params"]) if s.numel() >= 4 * ratio}
+            add("all-gather", _gather_bytes(specs["params"], state_sh["m"], sizes))
+            add("all-gather", _gather_bytes(
+                big, {p: dict(tree_leaves(state_sh["residual"]))[p] for p in big}, sizes))
             payload = gc.payload_bytes(specs["params"], gcomp) + 4 * scalars
-            add("all-gather", (sizes["pod"] * payload, sends))
-        else:
-            # each layer gathered in the forward and again in the remat backward
-            add("all-gather", _gather_bytes(specs["params"], state_sh["params"], sizes,
-                                            per_layer=2 if SETTINGS.remat != "none" else 1))
-            add("all-reduce", (4 * scalars * len(baxes), scalars * len(baxes)))
-            for op, pair in _grad_reduce_bytes(specs["params"], state_sh["m"], sizes,
-                                               baxes).items():
-                add(op, pair)
+            add("all-gather", (sizes["pod"] * payload, scalars + len(leaves)))
         add("all-reduce", (4, 1))                                # the clip's norm
         alias = 0
     else:
@@ -294,13 +296,31 @@ def test_arguments_are_the_ranks_blocks(cells, arch, mesh, kind):
 
 def test_topk32_pod_gather_is_the_payload(cells):
     """On the pod mesh with ``grad_compress="topk32"``, the all-gathers are
-    the parameters' and residuals' gathers plus the pods' exchange:
-    ``grad_compress.payload_bytes`` and the loss and metrics from each pod."""
+    each layer's parameters (as the dense step gathers them), each leaf's
+    grad and residual blocks gathered whole inside the pod, and the pods'
+    exchange: ``grad_compress.payload_bytes`` and the loss and metrics from
+    each pod, one exchange a leaf.  The grads reduce over the pod's "data"
+    ranks only (reduce-scatter where "data" splits a leaf)."""
     cell = cells["topk32"]
     got = cell["count"].stats.collectives
     for op, (nbytes, calls) in cell["collectives"].items():
         assert got[op] == {"bytes": nbytes, "count": calls}, (op, got[op], nbytes, calls)
-    assert got["reduce-scatter"]["count"] == 0
+    assert got["reduce-scatter"]["count"] > 0
+
+
+def test_topk32_cell_peaks_under_whole_gathers(cells):
+    """The reduced topk32 cell on the pod mesh peaks under its arguments and
+    the whole float32 parameters, residual and grads (what gathering them
+    whole held), and within the dense cell's peak, the residual's blocks
+    and ten copies of its largest leaf (each leaf one piece here)."""
+    from repro_torch.models import count_params
+
+    cfg = reduced(ARCHS["smollm-135m"])
+    c, dense = cells["topk32"]["count"], cells["smollm-135m", "multi", "train"]["count"]
+    largest = max(s.numel() for _, s in tree_leaves(param_specs(cfg)))
+    assert c.peak_bytes < c.argument_bytes + 3 * 4 * count_params(cfg)
+    assert c.peak_bytes <= (dense.peak_bytes + c.argument_bytes - dense.argument_bytes
+                            + 10 * 4 * largest)
 
 
 #: the memory test's config: reduced smollm-135m, 16 layers, d_ff 1024 (the
@@ -360,6 +380,52 @@ def test_the_peak_holds_one_layer_whole_at_a_time(kind):
     assert old > bound, (old, bound)
 
 
+def test_topk32_peak_holds_one_piece_whole(monkeypatch):
+    """The compressed step on a (2, 4, 4) pod mesh (a fake world of 32),
+    the DEEP config, its top-k units cut a layer each (``_SPLIT`` and
+    ``_PIECE`` 2^16, ``_BLOCK`` 2^12), peaks under the dense step's bound of
+    the test above plus the compress pass's working set: ten float32 copies
+    of a piece and three of the largest leaf's payload.  Gathering the
+    parameters, the residual and the grads whole, as the branch did
+    before, needs three whole float32 copies of the parameters on top of
+    the blocks, which exceeds that bound."""
+    import dataclasses
+
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import count_params
+
+    for name, value in (("_SPLIT", 1 << 16), ("_PIECE", 1 << 16), ("_BLOCK", 1 << 12)):
+        monkeypatch.setattr(gc, name, value)
+    cfg = dataclasses.replace(reduced(ARCHS["smollm-135m"]), **DEEP)
+    B, S = 16, 32
+    assert not dist.is_initialized()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=32)
+    try:
+        mesh = make_mesh((2, 4, 4), ("pod", "data", "model"), device="cpu")
+        c = dryrun.count_cell(cfg, ShapeConfig("x", S, B, "train"), mesh, SETTINGS,
+                              grad_compress="topk32")
+        specs = train_state_specs(cfg, grad_compress="topk32")
+        m_blocks = _block_bytes(specs["m"], train_state_shardings(
+            cfg, mesh, grad_compress="topk32")["m"])
+    finally:
+        dist.destroy_process_group()
+    L, D, F, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab
+    whole = 4 * count_params(cfg)
+    embed = 4 * V * D
+    layer = (whole - embed - 4 * D) // L
+    rows = B // 8                                  # the rank's rows (over "pod", "data")
+    act = 8 * rows * S * max(D, F, V) * 4 + L * rows * S * D * 4
+    blocks = c.argument_bytes + c.output_bytes + 2 * m_blocks
+    payload = max(gc.payload_bytes({"x": s}) for _, s in tree_leaves(specs["params"]))
+    bound = (blocks + 2 * layer * 3 // 2 + embed * 3 // 2 + act + 10 * 4 * gc._PIECE
+             + 3 * payload)
+    old = c.argument_bytes + 3 * whole
+    assert c.peak_bytes <= bound, (c.peak_bytes, bound)
+    assert old > bound, (old, bound)
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_run_cell_runs_the_ranks_step_for_real(kind):
     """``run_cell`` runs rank 0's step on real random blocks, the same
@@ -384,6 +450,33 @@ def test_run_cell_runs_the_ranks_step_for_real(kind):
             assert run["micro_batches"] == 1 and run["max_memory_allocated"] is None
     finally:
         dist.destroy_process_group()
+
+
+def test_run_cell_runs_a_compressed_step_for_real():
+    """``run_cell`` runs rank 0's ``topk32`` step on a (2, 2, 2) pod mesh (a
+    fake world of 8): the pods' exchange in a fake world leaves its parts
+    as this pod's payload, so the exchanged indices stay in their blocks;
+    ``count_compress`` counts the pass alone (12 exchanges: the 11 leaves
+    and the loss)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = reduced(ARCHS["smollm-135m"])
+    assert not dist.is_initialized()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+    try:
+        mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
+        shape = ShapeConfig("x", S, 8, "train")
+        c = dryrun.count_cell(cfg, shape, mesh, SETTINGS, grad_compress="topk32")
+        run = dryrun.run_cell(cfg, shape, mesh, SETTINGS, grad_compress="topk32", steps=1)
+        alone = dryrun.count_compress(cfg, mesh, "topk32")
+    finally:
+        dist.destroy_process_group()
+    assert run["argument_bytes"] == c.argument_bytes and len(run["seconds"]) == 1
+    assert alone["exchanges"] == 12 and alone["pieces"] == alone["leaves"] - 1 == 10
+    assert alone["payload_bytes"] == gc.payload_bytes(param_specs(cfg), "topk32")
+    assert alone["argument_bytes"] < alone["peak_bytes"] < c.peak_bytes
 
 
 def test_the_cli_writes_the_references_json(tmp_path):

@@ -17,7 +17,8 @@ reference's, on the CPU.
   on a (1, 1, 1) ("pod", "data", "model") mesh in-process, and on a
   (2, 1, 1) mesh in two gloo processes against the reference on two XLA
   host devices (a subprocess with ``--xla_force_host_platform_device_count
-  =2`` set before JAX is imported).  The two grads differ by float noise,
+  =2`` set before JAX is imported; the script takes the mesh's shape).
+  The two grads differ by float noise,
   so a block's selection may flip where an entry's |corrected| is within
   the grads' tolerance (1e-4 of the leaf's largest |grad|, plus 1e-4 of
   the threshold) of that block's k-th largest |corrected|: such entries
@@ -357,8 +358,9 @@ def test_compressed_step_one_pod_matches_the_reference():
 
 
 REF_SCRIPT = r"""
-import os, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+import math, os, sys
+shape = tuple(int(n) for n in sys.argv[2].split(","))
+os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={math.prod(shape)}"
 os.environ["JAX_PLATFORMS"] = "cpu"
 import numpy as np
 import jax, jax.numpy as jnp
@@ -375,7 +377,7 @@ state = jax.jit(rstep.init_train_state, static_argnums=(0, 2))(
     cfg, jax.random.PRNGKey(3), "topk32")
 batch = {k: jnp.asarray(v) for k, v in
          batch_at(DataConfig(vocab=cfg.vocab, batch=4, seq=16, seed=2), 3).items()}
-mesh = make_mesh((2, 1, 1), ("pod", "data", "model"))
+mesh = make_mesh(shape, ("pod", "data", "model"))
 _, jit_for, _ = rstep.build_train_step(cfg, mesh, settings=st, opt=opt,
                                        grad_compress="topk32", donate=False)
 with mesh:
@@ -393,7 +395,7 @@ np.savez(sys.argv[1], **flat)
 
 def test_compressed_step_two_pods_matches_the_reference(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    ref = subprocess.run([sys.executable, "-c", REF_SCRIPT, str(tmp_path / "ref.npz")],
+    ref = subprocess.run([sys.executable, "-c", REF_SCRIPT, str(tmp_path / "ref.npz"), "2,1,1"],
                          env=env, capture_output=True, text=True, timeout=300)
     assert ref.returncode == 0, ref.stderr[-3000:]
     flat = dict(np.load(tmp_path / "ref.npz"))

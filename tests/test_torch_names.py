@@ -24,7 +24,6 @@ GAPS = {
        for n in ("route", "resolve_ops", "DeviceFallbackWarning")},
     ("repro.core.schemes._device", "kernel_ops"):
         "the reference's fallback test (None without Pallas); the port has no fallback, by rule",
-    ("repro.core.shuffle", "zero_low_bits"): "no caller in the reference; ported with one",
     ("repro.launch.hlo_analysis", "analyze_hlo"):
         "parses XLA's HLO text; the port has none and counts its dispatched ops into the "
         "same `HloStats`",

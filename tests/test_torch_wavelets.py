@@ -110,6 +110,24 @@ def test_shuffle_bit_exact(itemsize):
                                       rshuffle.zero_low_bits_np(v, nbits), strict=True)
 
 
+@pytest.mark.parametrize("nbits", [0, 1, 4, 8, 12, 23, 31, 32])
+def test_zero_low_bits_is_the_references(nbits):
+    """``zero_low_bits`` on a torch tensor: the reference's bits, for normal
+    values, subnormals, signed zeros, infinities and NaN."""
+    rng = np.random.default_rng(nbits)
+    v = (rng.standard_normal(4096) * 10.0 ** rng.integers(-30, 30, 4096)).astype(np.float32)
+    special = np.array([0.0, -0.0, 1e-40, -1e-40, 1.4e-45, -3e-39, np.inf, -np.inf, np.nan,
+                        np.finfo(np.float32).max, np.finfo(np.float32).tiny], np.float32)
+    v = np.concatenate([v, special, rng.choice(special, 256)])
+    want = np.asarray(rshuffle.zero_low_bits(jnp.asarray(v), nbits))
+    got = tshuffle.zero_low_bits(torch.from_numpy(v.copy()), nbits)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  rshuffle.zero_low_bits_np(v, nbits).view(np.uint32))
+
+
+
 @pytest.mark.parametrize("method", sorted(rlossless.METHODS))
 def test_lossless_bit_exact(method):
     buf = np.random.default_rng(1).standard_normal(4096).astype(np.float32).tobytes()
