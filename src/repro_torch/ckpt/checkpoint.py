@@ -34,6 +34,7 @@ from repro_torch import DEFAULT_DEVICE
 from repro_torch.core.pipeline import CompressedField, CompressionSpec, Pipeline
 from repro_torch.core.schemes import torch_device
 from repro_torch.dist.offsets import exclusive_offsets_np
+from repro_torch.kernels import _obs as kobs
 from repro_torch.obs import trace
 
 __all__ = ["Checkpointer", "FieldSnapshotter", "save_checkpoint",
@@ -290,20 +291,26 @@ class FieldSnapshotter:
                        force: bool = False) -> int | None:
         """Append one snapshot every ``every`` steps; returns its timestep.
 
-        Tensors are copied to the host first (trace span
-        ``snapshot.host_copy``).  The simulation step is recorded as the
+        The whole call is the trace span ``snapshot``.  Tensors are copied
+        to the host first (span ``snapshot.host_copy``, the bytes in
+        ``cz_copy_bytes_total``).  The simulation step is recorded as the
         timestep's ``time`` tag, so :meth:`restore` can resolve "latest" or
         an exact step after reopen.
         """
         if not force and (self.every <= 0 or step % self.every != 0):
             return None
-        host = {}
-        for q, f in fields.items():
-            with trace.span("snapshot.host_copy", quantity=q):
-                host[q] = (f.detach().cpu().numpy() if isinstance(f, torch.Tensor)
-                           else np.asarray(f))
-        t = self.ds.append(host, time=float(step))
-        self._steps[step] = t
+        with trace.span("snapshot", step=step):
+            host = {}
+            for q, f in fields.items():
+                with trace.span("snapshot.host_copy", quantity=q):
+                    if isinstance(f, torch.Tensor):
+                        f = f.detach()
+                        kobs.count_copy(f, "cpu", "snapshot.host_copy")
+                        host[q] = f.cpu().numpy()
+                    else:
+                        host[q] = np.asarray(f)
+            t = self.ds.append(host, time=float(step))
+            self._steps[step] = t
         return t
 
     def restore(self, step: int | None = None):

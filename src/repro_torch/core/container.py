@@ -150,12 +150,13 @@ def build_field_header(pipe: Pipeline, source, extra_header: dict | None = None)
     tensor) and return ``(header, blocks)``, the blocks a tensor on the
     pipeline's device."""
     spec = pipe.spec
-    data = pipe.as_tensor(source)
     header = pipe.base_header()
-    if data.ndim == 3:
-        header["field_shape"] = list(data.shape)
-        data = blk.blockify(data, spec.block_size)
-    elif data.ndim != 4:
+    with trace.span("pipeline.to_device"):
+        data = pipe.as_tensor(source)
+        if data.ndim == 3:
+            header["field_shape"] = list(data.shape)
+            data = blk.blockify(data, spec.block_size)
+    if data.ndim != 4:
         raise ValueError(f"expected 3D field or 4D block batch, got {tuple(data.shape)}")
     header["raw_bytes"] = int(data.numel() * spec.np_dtype.itemsize)
     if extra_header:

@@ -24,6 +24,11 @@ Stage 1 ends with its copies to the host, so its seconds include the card's
 work.  The reference's live series (``cz_pipeline_*`` in
 :mod:`repro_torch.obs`) and its trace spans (``stage1``, and ``encode`` /
 ``decode`` per chunk) are recorded too, under the same names and labels.
+The port adds ``cz_pipeline_payload_bytes_total`` (the bytes serialize
+hands to stage 2), the ``pipeline.to_device`` span (a field onto the
+device and into blocks), the ``stage2`` span (stage 1's end to the last
+chunk yielded, parent of the chunks' ``encode`` spans on any thread) and
+``cz_copy_bytes_total{site="pipeline.to_device"}``.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch import DEFAULT_DEVICE, obs
+from repro_torch.kernels import _obs as kobs
 from repro_torch.obs import trace
 
 from . import blocks as blk
@@ -76,6 +82,9 @@ _RAW_BYTES = obs.counter("cz_pipeline_raw_bytes_total",
 _ENC_BYTES = obs.counter("cz_pipeline_encoded_bytes_total",
                          "Compressed bytes leaving chunk encode.",
                          labelnames=("scheme",))
+_PAYLOAD_BYTES = obs.counter("cz_pipeline_payload_bytes_total",
+                             "Serialized bytes handed to stage 2 by chunk encode.",
+                             labelnames=("scheme",))
 _RATIO = obs.gauge("cz_pipeline_ratio",
                    "Achieved compression ratio (cumulative raw/encoded).",
                    labelnames=("scheme",))
@@ -90,7 +99,7 @@ _DEC_SECONDS = obs.histogram("cz_pipeline_decode_seconds",
 
 
 def _account_encode(scheme: str, ci: int, raw: int, enc: int,
-                    t0_ns: int, t1_ns: int) -> None:
+                    t0_ns: int, t1_ns: int, parent: int | None = None) -> None:
     _ENC_CHUNKS.inc(scheme=scheme)
     _RAW_BYTES.inc(raw, scheme=scheme)
     _ENC_BYTES.inc(enc, scheme=scheme)
@@ -101,7 +110,7 @@ def _account_encode(scheme: str, ci: int, raw: int, enc: int,
     _ENC_SECONDS.observe((t1_ns - t0_ns) / 1e9, scheme=scheme)
     trace.record("encode", t0_ns, t1_ns, chunk=ci, scheme=scheme,
                  raw_bytes=raw, encoded_bytes=enc,
-                 ratio=round(raw / enc, 3) if enc else None)
+                 ratio=round(raw / enc, 3) if enc else None, parent=parent)
 
 
 @contextlib.contextmanager
@@ -219,13 +228,17 @@ class Pipeline:
 
     def as_tensor(self, data) -> torch.Tensor:
         """``data`` (numpy array or tensor) in the spec's dtype on this
-        pipeline's device."""
+        pipeline's device; a copy between host and card is counted at site
+        ``pipeline.to_device``."""
         if isinstance(data, torch.Tensor):
+            kobs.count_copy(data, self.device, "pipeline.to_device")
             return data.to(self.device, getattr(torch, self.spec.dtype))
         a = np.ascontiguousarray(data, self.spec.np_dtype)
         if not a.flags.writeable:  # torch.from_numpy warns on read-only arrays
             a = a.copy()
-        return torch.from_numpy(a).to(self.device)
+        t = torch.from_numpy(a)
+        kobs.count_copy(t, self.device, "pipeline.to_device")
+        return t.to(self.device)
 
     # -- compression -------------------------------------------------------
 
@@ -257,16 +270,21 @@ class Pipeline:
         ranges = [(ci, lo, min(lo + bpc, nblk))
                   for ci, lo in enumerate(range(0, nblk, bpc))]
         block_bytes = spec.np_dtype.itemsize * spec.block_size ** 3
+        # stage 2 as the caller waits on it: recorded on stage 2's close,
+        # its id taken now so that the chunks' encodes can name it
+        t_stage2 = time.perf_counter_ns()
+        stage2_id, stage2_parent = trace.next_id(), trace.current_id()
 
         def encode(ci: int, lo: int, hi: int) -> tuple[bytes, dict | None]:
             t0 = time.perf_counter_ns()
             with _timed("serialize"):
                 payload = self.scheme.serialize(s1, lo, hi, spec)
+            _PAYLOAD_BYTES.inc(len(payload), scheme=spec.scheme)
             with _timed("stage2_encode"):
                 chunk = lossless.encode(payload, spec.stage2)
             rec = self.scheme.chunk_record(s1, lo, hi, spec)
             _account_encode(spec.scheme, ci, (hi - lo) * block_bytes,
-                            len(chunk), t0, time.perf_counter_ns())
+                            len(chunk), t0, time.perf_counter_ns(), stage2_id)
             return chunk, rec
 
         def emit(chunk: bytes, rec: dict | None, n: int) -> tuple[bytes, int]:
@@ -275,30 +293,34 @@ class Pipeline:
             return chunk, n
 
         nworkers = self.workers if workers is None else max(1, int(workers))
-        if executor is None and nworkers <= 1:
-            for ci, lo, hi in ranges:
-                yield emit(*encode(ci, lo, hi), hi - lo)
-            return
-
-        own_pool = executor is None
-        pool = executor or concurrent.futures.ThreadPoolExecutor(nworkers)
         try:
-            # keep at most ~2x workers chunks in flight: parallelism without
-            # materializing the whole compressed chunk list
-            it = iter(ranges)
-            pending = collections.deque(
-                (r, pool.submit(encode, *r))
-                for r in itertools.islice(it, 2 * nworkers))
-            while pending:
-                (_ci, lo, hi), fut = pending.popleft()
-                nxt = next(it, None)
-                if nxt is not None:
-                    pending.append((nxt, pool.submit(encode, *nxt)))
-                # the one ordered drain appends records in chunk order
-                yield emit(*fut.result(), hi - lo)
+            if executor is None and nworkers <= 1:
+                for ci, lo, hi in ranges:
+                    yield emit(*encode(ci, lo, hi), hi - lo)
+                return
+
+            own_pool = executor is None
+            pool = executor or concurrent.futures.ThreadPoolExecutor(nworkers)
+            try:
+                # keep at most ~2x workers chunks in flight: parallelism
+                # without materializing the whole compressed chunk list
+                it = iter(ranges)
+                pending = collections.deque(
+                    (r, pool.submit(encode, *r))
+                    for r in itertools.islice(it, 2 * nworkers))
+                while pending:
+                    (_ci, lo, hi), fut = pending.popleft()
+                    nxt = next(it, None)
+                    if nxt is not None:
+                        pending.append((nxt, pool.submit(encode, *nxt)))
+                    # the one ordered drain appends records in chunk order
+                    yield emit(*fut.result(), hi - lo)
+            finally:
+                if own_pool:
+                    pool.shutdown(wait=True, cancel_futures=True)
         finally:
-            if own_pool:
-                pool.shutdown(wait=True, cancel_futures=True)
+            trace.record("stage2", t_stage2, time.perf_counter_ns(), id=stage2_id,
+                         parent=stage2_parent, scheme=spec.scheme, chunks=len(ranges))
 
     def compress_blocks(self, blocks, extra_header: dict | None = None
                         ) -> CompressedField:
@@ -325,7 +347,8 @@ class Pipeline:
                        ) -> CompressedField:
         """Compress a 3D field: a numpy array, or a tensor already on the
         device (it is not copied to the host first)."""
-        blocks = blk.blockify(self.as_tensor(field), self.spec.block_size)
+        with trace.span("pipeline.to_device"):
+            blocks = blk.blockify(self.as_tensor(field), self.spec.block_size)
         hdr = {"field_shape": list(field.shape)}
         if extra_header:
             hdr.update(extra_header)

@@ -8,8 +8,10 @@ significance bitmask, then the coarse corner + significant details as one
 shuffled float32 stream.
 
 The blocks stay on their device through the forward transform and the
-mask; only the mask, the coefficients and the coarse corner come to the
-host.  On decode each chunk's coefficients go to the device for the inverse
+mask (trace span ``stage1.transform``); only the mask, the coefficients
+and the coarse corner come to the host (``stage1.to_host``, its bytes in
+``cz_copy_bytes_total``).  On the card both spans carry the card's time.
+On decode each chunk's coefficients go to the device for the inverse
 transform.  On a CUDA device both transforms are the hand-written kernels.
 """
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels import _obs as kobs
 from repro_torch.kernels import ops
 
 from .. import shuffle as shuf
@@ -52,13 +55,18 @@ class WaveletScheme(Scheme):
 
     def stage1(self, blocks, spec):
         self.check(blocks, spec)
-        x = blocks.to(torch.float32).contiguous()
-        coeffs = ops.wavelet_forward(x, kind=spec.wavelet, levels=spec.levels)
-        mask = threshold.significant_mask(coeffs, spec.eps, spec.levels)
+        with kobs.device_span("stage1.transform", blocks.device):
+            x = blocks.to(torch.float32).contiguous()
+            coeffs = ops.wavelet_forward(x, kind=spec.wavelet, levels=spec.levels)
+            mask = threshold.significant_mask(coeffs, spec.eps, spec.levels)
+        with kobs.device_span("stage1.to_host", blocks.device):
+            kobs.count_copy(coeffs, "cpu", "stage1.to_host")
+            coeffs_np = coeffs.cpu().numpy()
+            kobs.count_copy(mask, "cpu", "stage1.to_host")
+            mask_np = mask.cpu().numpy()
         c = wavelets.coarse_side(spec.block_size, spec.levels)
-        coeffs_np = coeffs.cpu().numpy()
         return {
-            "mask": mask.cpu().numpy(),
+            "mask": mask_np,
             "coeffs": coeffs_np,
             "coarse": coeffs_np[..., :c, :c, :c],
         }

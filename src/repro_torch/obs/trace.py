@@ -13,6 +13,15 @@ shared no-op context manager after one attribute check, so instrumented hot
 paths (per-chunk encode, store gets) stay within noise when nobody is
 tracing (the ``bench_speed`` overhead budget is < 2%).
 
+Spans nest: each one recorded through the module's helpers carries an
+``id`` and the ``parent`` id of the span that caused it in its ``args``
+(ids are unique within one process).  The parent is the innermost span
+still open on the recording thread, or the ``parent=`` a caller passes,
+as the pipeline does for chunk encodes on its pool's threads.  Device
+times arrive late: :meth:`Tracer.defer` holds a callable that finishes an
+event (the CUDA-event pair of ``repro_torch.kernels._obs.device_span``),
+run before the events are next read.
+
 Clocks are monotonic (``time.perf_counter_ns``); each tracer also anchors a
 wall-clock epoch at :meth:`Tracer.enable` so traces from *different
 processes* can be merged onto one timeline: the cluster engine's worker
@@ -24,6 +33,7 @@ Stdlib only — importable before numpy/jax.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import threading
@@ -32,7 +42,8 @@ import time
 from repro_torch.obs import context as _context
 
 __all__ = ["Tracer", "TRACER", "span", "traced", "tracing", "enable",
-           "disable", "record", "reset", "save", "merge_traces"]
+           "disable", "record", "next_id", "current_id", "reset", "save",
+           "merge_traces"]
 
 
 class _NullSpan:
@@ -51,25 +62,39 @@ _NULL = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("_tracer", "_name", "_args", "_t0")
+    """A live span: open on its thread's stack from enter to exit, so the
+    spans begun inside it name it as their parent.  ``event`` is the
+    tracer's event once the span has closed (``None`` where only a request
+    context collected it)."""
+
+    __slots__ = ("_tracer", "_name", "_args", "_t0", "_id", "_parent", "event")
 
     def __init__(self, tracer: "Tracer", name: str, args: dict):
         self._tracer = tracer
         self._name = name
         self._args = args
+        self.event = None
 
     def __enter__(self):
+        stack = self._tracer._stack()
+        self._parent = stack[-1] if stack else None
+        self._id = self._tracer.new_id()
+        stack.append(self._id)
         self._t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
-        _emit(self._tracer, self._name, self._t0, time.perf_counter_ns(),
-              self._args)
+        t1 = time.perf_counter_ns()
+        stack = self._tracer._stack()
+        if self._id in stack:  # gone only after a reset() inside the span
+            stack.remove(self._id)
+        self.event = _emit(self._tracer, self._name, self._t0, t1,
+                           {**self._args, "id": self._id, "parent": self._parent})
         return False
 
 
 def _emit(tracer: "Tracer", name: str, t0_ns: int, t1_ns: int,
-          args: dict) -> None:
+          args: dict) -> dict | None:
     """Deliver one completed span to the tracer *and* the active request
     context: the request ID is stamped onto the tracer event (so one slow
     query is findable on the Perfetto timeline) and, when the context is
@@ -80,7 +105,7 @@ def _emit(tracer: "Tracer", name: str, t0_ns: int, t1_ns: int,
         if args.get("rid") is None:
             args = {**args, "rid": ctx.rid} if args else {"rid": ctx.rid}
         ctx.record(name, t0_ns, t1_ns, args)
-    tracer.record(name, t0_ns, t1_ns, **args)
+    return tracer.record(name, t0_ns, t1_ns, **args)
 
 
 class Tracer:
@@ -100,6 +125,8 @@ class Tracer:
         self._events: list[dict] = []
         self._threads: dict[int, str] = {}
         self._local = threading.local()
+        self._ids = itertools.count(1)
+        self._deferred: list = []
         self._origin_ns = time.perf_counter_ns()
         self._epoch_us = time.time_ns() // 1000
 
@@ -123,6 +150,7 @@ class Tracer:
         with self._lock:
             self._events.clear()
             self._threads.clear()
+            self._deferred.clear()
             self._local = threading.local()
             self._origin_ns = time.perf_counter_ns()
             self._epoch_us = time.time_ns() // 1000
@@ -136,6 +164,29 @@ class Tracer:
             return _NULL
         return _Span(self, name, args)
 
+    def new_id(self) -> int:
+        """A fresh span id (``itertools.count`` steps atomically)."""
+        return next(self._ids)
+
+    def _stack(self) -> list:
+        """The ids of the spans open on the calling thread, innermost last."""
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def current_id(self) -> int | None:
+        """The innermost span open on the calling thread, if any."""
+        stack = getattr(self._local, "stack", None)
+        return stack[-1] if stack else None
+
+    def defer(self, finish) -> None:
+        """Run ``finish()`` once, before the events are next read: for an
+        event whose ``args`` wait on something the host did not wait for
+        (the device's time of a span)."""
+        with self._lock:
+            self._deferred.append(finish)
+
     def _tid(self) -> int:
         tid = getattr(self._local, "tid", None)
         if tid is None:
@@ -144,12 +195,14 @@ class Tracer:
                 self._threads[tid] = threading.current_thread().name
         return tid
 
-    def record(self, name: str, t0_ns: int, t1_ns: int, **args) -> None:
+    def record(self, name: str, t0_ns: int, t1_ns: int, **args) -> dict | None:
         """Append one complete event from explicit ``perf_counter_ns``
         stamps — for instrumentation that already timed the work (the
-        pipeline's per-chunk path computes bytes/ratio after the fact)."""
+        pipeline's per-chunk path computes bytes/ratio after the fact).
+        Returns the event (``None`` while disabled), whose ``args`` a
+        :meth:`defer` callable may complete."""
         if not self.enabled:
-            return
+            return None
         ev = {"name": name, "ph": "X", "cat": "repro",
               "ts": (t0_ns - self._origin_ns) / 1e3,
               "dur": (t1_ns - t0_ns) / 1e3,
@@ -158,6 +211,7 @@ class Tracer:
             ev["args"] = args
         with self._lock:
             self._events.append(ev)
+        return ev
 
     def instant(self, name: str, **args) -> None:
         """Mark a point in time (``"ph": "i"``)."""
@@ -174,6 +228,10 @@ class Tracer:
     # -- export --------------------------------------------------------------
 
     def events(self) -> list[dict]:
+        with self._lock:
+            deferred, self._deferred = self._deferred, []
+        for finish in deferred:
+            finish()
         with self._lock:
             return [dict(ev) for ev in self._events]
 
@@ -254,12 +312,35 @@ def span(name: str, **args):
     return _NULL
 
 
-def record(name: str, t0_ns: int, t1_ns: int, **args) -> None:
+def record(name: str, t0_ns: int, t1_ns: int, **args) -> dict | None:
     """Record one already-timed span against the process tracer *and* the
     active request context (instrumentation that computes byte counts after
-    the fact uses this instead of :func:`span`)."""
+    the fact uses this instead of :func:`span`).  ``id=`` gives the span an
+    id taken earlier from :func:`next_id`; ``parent=`` names its parent,
+    by default the innermost span open on this thread.  Returns the
+    tracer's event, if it recorded one."""
     if TRACER.enabled or _context.current() is not None:
-        _emit(TRACER, name, t0_ns, t1_ns, args)
+        if "id" not in args:
+            args["id"] = TRACER.new_id()
+        if "parent" not in args:
+            args["parent"] = TRACER.current_id()
+        return _emit(TRACER, name, t0_ns, t1_ns, args)
+    return None
+
+
+def next_id() -> int | None:
+    """An id for a span to be recorded later with :func:`record`, so that
+    spans recorded before it, on any thread, can name it as their parent;
+    ``None`` while nothing records."""
+    if TRACER.enabled:
+        return TRACER.new_id()
+    ctx = _context.current()
+    return TRACER.new_id() if ctx is not None and ctx.collecting else None
+
+
+def current_id() -> int | None:
+    """The id of the innermost span open on the calling thread, if any."""
+    return TRACER.current_id()
 
 
 def traced(name: str | None = None, **cargs):

@@ -421,3 +421,72 @@ def test_cuda_without_a_gpu_raises(tmp_path, monkeypatch):
         FieldSnapshotter(str(tmp_path / "s"))
     with pytest.raises(RuntimeError, match="cuda"):
         Checkpointer(str(tmp_path / "k"))
+
+
+# -- the snapshot path's trace -------------------------------------------------
+
+def _snapshot_fields():
+    g = torch.Generator().manual_seed(7)
+    return {q: torch.randn((64, 64, 64), generator=g) * 10 for q in ("p", "rho")}
+
+
+def _span_tree(events) -> list:
+    """The spans as nested ``(name, children)``, children sorted, from their
+    ``id`` and ``parent`` args; a kernel wrapper's phase reads ``kernel.*``."""
+    kids: dict = {}
+    for e in events:
+        if e["ph"] == "X":
+            kids.setdefault(e["args"]["parent"], []).append(e)
+
+    def tree(parent):
+        return sorted((("kernel.*" if e["name"].startswith("kernel.") else e["name"],
+                        tree(e["args"]["id"])) for e in kids.get(parent, [])), key=str)
+    return tree(None)
+
+
+def test_traced_snapshot_yields_the_span_tree(tmp_path):
+    from repro_torch.obs import trace
+
+    spec = CompressionSpec(buffer_bytes=1 << 18)     # 2 blocks of 32^3 a chunk
+    snap = FieldSnapshotter(str(tmp_path / "s"), spec=spec, workers=2, device="cpu")
+    trace.reset()
+    trace.enable()
+    try:
+        assert snap.maybe_snapshot(_snapshot_fields(), 3) == 0
+        events = trace.TRACER.events()
+    finally:
+        trace.disable()
+        trace.reset()
+        snap.close()
+    write = ("dataset.write", [
+        ("pipeline.to_device", []),
+        ("stage1", [("stage1.to_host", []),
+                    ("stage1.transform", [("kernel.*", [])])]),
+        ("stage2", [("encode", [])] * 4),
+    ])
+    assert _span_tree(events) == [("snapshot", sorted(
+        [("dataset.commit", [])] + [write] * 2 + [("snapshot.host_copy", [])] * 2, key=str))]
+    (top,) = [e for e in events if e["name"] == "snapshot"]
+    assert top["args"]["step"] == 3
+    assert {e["args"]["quantity"] for e in events if e["name"] == "dataset.write"} == \
+        {"p", "rho"}
+
+
+def test_untraced_snapshot_records_nothing_and_touches_no_cuda_event(tmp_path, monkeypatch):
+    from repro_torch.obs import trace
+
+    made = []
+    monkeypatch.setattr(torch.cuda, "Event", lambda *a, **k: made.append(1))
+
+    def no_sync(*a, **k):
+        raise AssertionError("an untraced snapshot synchronized")
+    monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+    copies = obs.REGISTRY.get("cz_copy_bytes_total")
+    before = copies.samples()
+    trace.reset()
+    snap = FieldSnapshotter(str(tmp_path / "s"), spec=CompressionSpec(), workers=2,
+                            device="cpu")
+    assert snap.maybe_snapshot(_snapshot_fields(), 0) == 0
+    snap.close()
+    assert trace.TRACER.events() == [] and made == []
+    assert copies.samples() == before               # nothing crossed to a card

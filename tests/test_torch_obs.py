@@ -157,7 +157,10 @@ def test_pipeline_series_have_the_reference_names_kinds_and_labels():
     tp = Pipeline(CompressionSpec(**spec), device="cpu")
     tp.decompress(tp.compress(x))
     RPipeline(RSpec(**spec)).compress(x)
-    assert _series(tobs.REGISTRY, "cz_pipeline_") == _series(robs.REGISTRY, "cz_pipeline_")
+    port = _series(tobs.REGISTRY, "cz_pipeline_")
+    # the port's one series more: the bytes serialize hands to stage 2
+    assert port.pop("cz_pipeline_payload_bytes_total") == ("counter", ("scheme",))
+    assert port == _series(robs.REGISTRY, "cz_pipeline_")
     assert enc.value(scheme="wavelet") - before == 4  # 8 blocks, 2 per chunk
 
 
@@ -239,3 +242,198 @@ def test_a_refused_launch_counts_nothing(name):
     with pytest.raises(ValueError, match="CUDA"):
         getattr(ops, name)(torch.empty((1, 8, 8, 8), device="meta"))
     assert series() == before
+
+
+# -- span ids and parents, device time, copies (the port's own tracing) -------
+
+@pytest.fixture
+def traced():
+    ttrace.reset()
+    ttrace.enable()
+    try:
+        yield ttrace.TRACER
+    finally:
+        ttrace.disable()
+        ttrace.reset()
+
+
+def _by_name(events) -> dict:
+    return {e["name"]: e["args"] for e in events if e["ph"] == "X"}
+
+
+def test_spans_name_their_parent_on_their_thread(traced):
+    import threading
+
+    with ttrace.span("outer", k=1):
+        with ttrace.span("inner"):
+            o = ttrace.current_id()
+            ttrace.record("stamped", o, o)
+        later = ttrace.next_id()
+        seen = {}
+
+        def other():  # another thread's stack is empty: the parent is passed
+            seen["current"] = ttrace.current_id()
+            ttrace.record("chunk", 0, 1, parent=later)
+
+        t = threading.Thread(target=other)
+        t.start()
+        t.join(timeout=30)
+        assert not t.is_alive()
+    ttrace.record("late", 0, 1, id=later)
+    a = _by_name(traced.events())
+    assert seen["current"] is None
+    assert a["outer"]["k"] == 1 and a["outer"]["parent"] is None
+    assert a["inner"]["parent"] == a["outer"]["id"]
+    assert a["stamped"]["parent"] == a["inner"]["id"]
+    assert a["chunk"]["parent"] == a["late"]["id"] == later
+    assert a["late"]["parent"] is None       # recorded after "outer" closed
+    assert len({x["id"] for x in a.values()}) == len(a)
+
+
+def test_nothing_runs_while_tracing_is_off():
+    ttrace.reset()
+    assert not ttrace.tracing()
+    assert ttrace.span("x") is ttrace.span("y")          # the shared no-op
+    assert ttrace.next_id() is None and ttrace.current_id() is None
+    with ttrace.span("x"):
+        assert ttrace.current_id() is None               # no stack was kept
+    assert ttrace.record("x", 0, 1) is None
+    assert ttrace.TRACER.events() == []
+
+
+def test_deferred_finish_runs_once_before_events_are_read(traced):
+    ev = ttrace.record("late", 0, 1)
+    calls = []
+    traced.defer(lambda: (calls.append(1), ev["args"].update(device_us=7.0)))
+    assert calls == []
+    assert _by_name(traced.events())["late"]["device_us"] == 7.0
+    traced.events()
+    assert calls == [1]
+
+
+class _FakeEvent:
+    """``torch.cuda.Event`` on the CPU: stamps the host clock at ``record``,
+    done at once unless ``pending``."""
+    made = 0
+    pending = False
+
+    def __init__(self, enable_timing=False):
+        assert enable_timing
+        type(self).made += 1
+        self.t = None
+
+    def record(self, stream=None):
+        import time
+
+        self.t = time.perf_counter()
+
+    def query(self):
+        return not type(self).pending
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+
+class _FakeCudaArg:
+    """A kernel argument that reports the card as its device."""
+    device = torch.device("cuda")
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """CUDA events and streams faked on the CPU; any synchronize fails."""
+    _FakeEvent.made, _FakeEvent.pending = 0, False
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+
+    def no_sync(*a, **k):
+        raise AssertionError("tracing synchronized the card")
+    monkeypatch.setattr(torch.cuda, "synchronize", no_sync)
+    return _FakeEvent
+
+
+@pytest.mark.parametrize("pending", [False, True], ids=["done", "pending"])
+def test_device_span_times_the_card_only_while_tracing(fake_card, pending):
+    from repro_torch.kernels import _obs as kobs
+
+    ttrace.reset()
+    with kobs.device_span("stage1.transform", "cuda"):
+        pass
+    assert fake_card.made == 0 and ttrace.TRACER.events() == []
+    fake_card.pending = pending
+    ttrace.enable()
+    try:
+        with kobs.device_span("stage1.transform", "cuda", n=3):
+            with kobs.device_span("stage1.to_host", "cpu"):   # a plain span on the CPU
+                pass
+        assert fake_card.made == 2
+        a = _by_name(ttrace.TRACER.events())
+    finally:
+        ttrace.disable()
+        ttrace.reset()
+    assert a["stage1.transform"]["n"] == 3 and a["stage1.transform"]["device_us"] >= 0
+    assert a["stage1.to_host"]["parent"] == a["stage1.transform"]["id"]
+    assert "device_us" not in a["stage1.to_host"]
+
+
+def test_kernel_wrapper_on_the_card_never_synchronizes(fake_card):
+    from repro_torch.kernels import _obs as kobs
+
+    secs = tobs.REGISTRY.get("cz_kernel_seconds")
+    probe = kobs.instrument("obs_probe")(lambda x: x)
+    arg = _FakeCudaArg()
+    ttrace.reset()
+    probe(arg)                                  # untraced: no event, no wait
+    assert fake_card.made == 0
+    ttrace.enable()
+    try:
+        with ttrace.span("caller"):
+            probe(arg)
+        a = _by_name(ttrace.TRACER.events())
+    finally:
+        ttrace.disable()
+        ttrace.reset()
+    assert fake_card.made == 2
+    assert a["kernel.execute"]["device_us"] >= 0
+    assert a["kernel.execute"]["parent"] == a["caller"]["id"]
+    assert a["kernel.execute"]["device"] == "cuda"
+    for phase in ("compile", "execute"):
+        assert secs.snapshot(kernel="obs_probe", device="cuda", phase=phase)["count"] == 1
+
+
+class _FakeTensor:
+    def __init__(self, device, numel, itemsize, pinned=False):
+        self.device = torch.device(device)
+        self._n, self._b, self._p = numel, itemsize, pinned
+
+    def numel(self):
+        return self._n
+
+    def element_size(self):
+        return self._b
+
+    def is_pinned(self):
+        return self._p
+
+
+def test_copy_counter_counts_only_copies_that_cross():
+    from repro_torch.kernels import _obs as kobs
+
+    copies = tobs.REGISTRY.get("cz_copy_bytes_total")
+
+    def series():
+        return {tuple(sorted(labels.items())): v for labels, v in copies.samples()}
+
+    before = series()
+    kobs.count_copy(torch.zeros(8), "cpu", "probe.same")            # stays on the host
+    kobs.count_copy(_FakeTensor("cuda", 8, 4), "cuda", "probe.same")  # stays on the card
+    assert series() == before
+    kobs.count_copy(_FakeTensor("cuda", 10, 4), "cpu", "probe.d2h")
+    kobs.count_copy(_FakeTensor("cpu", 10, 1), "cuda", "probe.h2d")
+    kobs.count_copy(_FakeTensor("cpu", 3, 2, pinned=True), torch.device("cuda"), "probe.h2d")
+    assert copies.value(direction="d2h", site="probe.d2h", pinned="false") == 40
+    assert copies.value(direction="h2d", site="probe.h2d", pinned="false") == 10
+    assert copies.value(direction="h2d", site="probe.h2d", pinned="true") == 6

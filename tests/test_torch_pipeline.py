@@ -145,3 +145,67 @@ def test_lorenzo_rejects_eps_as_the_reference():
             RSpec(scheme="lorenzo", eps=eps).validate()
         with pytest.raises(ValueError, match="lorenzo requires eps > 0"):
             CompressionSpec(scheme="lorenzo", eps=eps).validate()
+
+
+# -- the port's own counters and spans of stage 2 ----------------------------
+
+@pytest.mark.parametrize("scheme", ["wavelet", "raw"])
+def test_payload_counter_is_the_serialized_bytes(scheme):
+    from repro_torch import obs
+
+    payload = obs.REGISTRY.get("cz_pipeline_payload_bytes_total")
+    spec = CompressionSpec(scheme=scheme, block_size=16, buffer_bytes=1 << 15)
+    pipe = Pipeline(spec, workers=2, device="cpu")
+    blocks = pipe.as_tensor(_field(64, seed=2)).reshape(-1, 16, 16, 16)
+    s1 = pipe.scheme.stage1(blocks, pipe.spec)
+    bpc, nblk = pipe.blocks_per_chunk, blocks.shape[0]
+    want = sum(len(pipe.scheme.serialize(s1, lo, min(lo + bpc, nblk), pipe.spec))
+               for lo in range(0, nblk, bpc))
+    before = payload.value(scheme=scheme)
+    chunks = list(pipe.iter_chunks(blocks))
+    assert len(chunks) > 1
+    assert payload.value(scheme=scheme) - before == want
+
+
+def test_copy_counter_counts_nothing_on_the_cpu_path():
+    from repro_torch import obs
+
+    copies = obs.REGISTRY.get("cz_copy_bytes_total")
+
+    def series():
+        return {tuple(sorted(labels.items())): v for labels, v in copies.samples()}
+
+    before = series()
+    pipe = Pipeline(CompressionSpec(block_size=16), device="cpu")
+    pipe.compress(_field())
+    pipe.compress(torch.from_numpy(_field()))
+    assert series() == before
+
+
+@pytest.mark.parametrize("workers", [1, 3], ids=["serial", "threaded"])
+def test_stage2_closes_when_the_chunks_are_abandoned(workers):
+    from repro_torch.obs import trace
+
+    pipe = Pipeline(CompressionSpec(block_size=16, buffer_bytes=1 << 14), workers=workers,
+                    device="cpu")
+    blocks = pipe.as_tensor(_field(64, seed=3)).reshape(-1, 16, 16, 16)
+    trace.reset()
+    trace.enable()
+    try:
+        with trace.span("caller"):
+            chunks = pipe.iter_chunks(blocks)
+            next(chunks)
+            chunks.close()                 # the consumer stops after one chunk
+        evs = [e for e in trace.TRACER.events() if e["ph"] == "X"]
+    finally:
+        trace.disable()
+        trace.reset()
+    (caller,) = [e for e in evs if e["name"] == "caller"]
+    (stage1,) = [e for e in evs if e["name"] == "stage1"]
+    (stage2,) = [e for e in evs if e["name"] == "stage2"]
+    encodes = [e for e in evs if e["name"] == "encode"]
+    assert stage2["args"]["parent"] == stage1["args"]["parent"] == caller["args"]["id"]
+    assert stage2["args"]["chunks"] == 64 and 1 <= len(encodes) < 64  # a block a chunk
+    assert all(e["args"]["parent"] == stage2["args"]["id"] for e in encodes)
+    assert stage2["ts"] >= stage1["ts"] + stage1["dur"]
+    assert stage2["ts"] + stage2["dur"] <= caller["ts"] + caller["dur"]
