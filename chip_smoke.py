@@ -2348,10 +2348,11 @@ INSITU_SOLVER_TOL = 1e-5
 
 
 def _snapshot_split(events: list[dict], qois) -> dict:
-    """One snapshot's seconds by its trace spans, per QoI: the host copy of
-    the field, the member's write, within it stage 1 and the chunks'
-    encodes (first start to last end, across the pool's threads), and the
-    rest of the write; and the manifest's commit."""
+    """One snapshot's seconds by its trace spans, per QoI: the member's
+    write (the field goes to stage 1 on the card, with no host copy before
+    it), within it stage 1 and the chunks' encodes (first start to last
+    end, across the pool's threads), and the rest of the write; and the
+    manifest's commit."""
     def walls(name, lo=None, hi=None, **args):
         evs = [e for e in events if e["name"] == name
                and all(e.get("args", {}).get(k) == v for k, v in args.items())
@@ -2361,11 +2362,10 @@ def _snapshot_split(events: list[dict], qois) -> dict:
 
     out = {}
     for q in qois:
-        c0, c1 = walls("snapshot.host_copy", quantity=q)
         w0, w1 = walls("dataset.write", quantity=q)
         s0, s1 = walls("stage1", w0, w1)
         e0, e1 = walls("encode", w0, w1)
-        out[q] = {"host_copy": (c1 - c0) / 1e6, "write": (w1 - w0) / 1e6,
+        out[q] = {"write": (w1 - w0) / 1e6,
                   "stage1": (s1 - s0) / 1e6, "encode": (e1 - e0) / 1e6,
                   "write_rest": ((w1 - w0) - (s1 - s0) - (e1 - e0)) / 1e6}
     m0, m1 = walls("dataset.commit")
@@ -2398,7 +2398,7 @@ def phase_insitu(torch, tmp: str, sides: list[dict]) -> dict:
     each snapshot's seconds per QoI by its trace spans, CR and max error per
     QoI, the restore's seconds and the in-situ overhead ``io_s / (sim_s +
     io_s)`` (``benchmarks/bench_insitu.py``): ``sim_s`` the 10 steps,
-    ``io_s`` the two ``maybe_snapshot`` calls, host copies included."""
+    ``io_s`` the two ``maybe_snapshot`` calls, stage 1's copies included."""
     import math
 
     from repro_torch.ckpt import Checkpointer, FieldSnapshotter, latest_step

@@ -34,7 +34,6 @@ from repro_torch import DEFAULT_DEVICE
 from repro_torch.core.pipeline import CompressedField, CompressionSpec, Pipeline
 from repro_torch.core.schemes import torch_device
 from repro_torch.dist.offsets import exclusive_offsets_np
-from repro_torch.kernels import _obs as kobs
 from repro_torch.obs import trace
 
 __all__ = ["Checkpointer", "FieldSnapshotter", "save_checkpoint",
@@ -291,25 +290,19 @@ class FieldSnapshotter:
                        force: bool = False) -> int | None:
         """Append one snapshot every ``every`` steps; returns its timestep.
 
-        The whole call is the trace span ``snapshot``.  Tensors are copied
-        to the host first (span ``snapshot.host_copy``, the bytes in
-        ``cz_copy_bytes_total``).  The simulation step is recorded as the
-        timestep's ``time`` tag, so :meth:`restore` can resolve "latest" or
-        an exact step after reopen.
+        The whole call is the trace span ``snapshot``.  A tensor field is
+        handed on where it lies, never copied to the host: stage 1 reads it
+        on the dataset's device (a tensor on another device moves there
+        once, counted at ``pipeline.to_device``), and it is never written
+        to.  The simulation step is recorded as the timestep's ``time`` tag,
+        so :meth:`restore` can resolve "latest" or an exact step after
+        reopen.
         """
         if not force and (self.every <= 0 or step % self.every != 0):
             return None
         with trace.span("snapshot", step=step):
-            host = {}
-            for q, f in fields.items():
-                with trace.span("snapshot.host_copy", quantity=q):
-                    if isinstance(f, torch.Tensor):
-                        f = f.detach()
-                        kobs.count_copy(f, "cpu", "snapshot.host_copy")
-                        host[q] = f.cpu().numpy()
-                    else:
-                        host[q] = np.asarray(f)
-            t = self.ds.append(host, time=float(step))
+            t = self.ds.append({q: f.detach() if isinstance(f, torch.Tensor) else f
+                                for q, f in fields.items()}, time=float(step))
             self._steps[step] = t
         return t
 

@@ -229,10 +229,13 @@ class Pipeline:
     def as_tensor(self, data) -> torch.Tensor:
         """``data`` (numpy array or tensor) in the spec's dtype on this
         pipeline's device; a copy between host and card is counted at site
-        ``pipeline.to_device``."""
+        ``pipeline.to_device``.  A tensor already there in that dtype is
+        returned as it is; one elsewhere is cast where it lies first, so
+        the copy carries the spec's bytes."""
         if isinstance(data, torch.Tensor):
+            data = data.to(getattr(torch, self.spec.dtype))
             kobs.count_copy(data, self.device, "pipeline.to_device")
-            return data.to(self.device, getattr(torch, self.spec.dtype))
+            return data.to(self.device)
         a = np.ascontiguousarray(data, self.spec.np_dtype)
         if not a.flags.writeable:  # torch.from_numpy warns on read-only arrays
             a = a.copy()

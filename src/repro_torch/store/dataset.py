@@ -31,12 +31,14 @@ import collections
 import threading
 
 import numpy as np
+import torch
 
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.core import container, metrics
 from repro_torch.core.container import FieldReader
 from repro_torch.core.pipeline import CompressionSpec
 from repro_torch.core.schemes import torch_device
+from repro_torch.kernels import _obs as kobs
 from repro_torch.obs import trace
 
 from .backends import Store, open_store
@@ -51,13 +53,17 @@ from .manifest import (
     read_rank_manifest,
     write_manifest,
 )
-from .writer import ShardWriter
+from .writer import ShardWriter, _as_field
 
 __all__ = ["CZDataset"]
 
-def _member_stats(field: np.ndarray, dec: np.ndarray) -> dict:
+def _member_stats(field: np.ndarray | torch.Tensor, dec: np.ndarray) -> dict:
     """Per-member quality record (PSNR is None when the member is lossless —
-    JSON has no Infinity)."""
+    JSON has no Infinity).  A tensor field is copied to the host for it,
+    counted at site ``dataset.member_stats``."""
+    if isinstance(field, torch.Tensor):
+        kobs.count_copy(field, "cpu", "dataset.member_stats")
+        field = field.cpu().numpy()
     p = metrics.psnr(field, dec)
     err = float(np.max(np.abs(np.asarray(field, np.float64)
                               - np.asarray(dec, np.float64))))
@@ -202,7 +208,7 @@ class CZDataset:
 
     # -- append mode -------------------------------------------------------
 
-    def append(self, fields: dict[str, np.ndarray],
+    def append(self, fields: dict[str, np.ndarray | torch.Tensor],
                time: float | None = None) -> int:
         """Commit one timestep of one or more quantities; returns its index.
 
@@ -210,6 +216,10 @@ class CZDataset:
         the shared pool), then the manifest is replaced atomically — a crash
         mid-append leaves at most orphaned member objects, never a timestep
         that is half-visible.
+
+        A field is a numpy array (or anything ``np.asarray`` takes) or a
+        tensor on any device.  A tensor goes to stage 1 as it is, with no
+        host copy; its members and manifest record are its numpy twin's.
         """
         if self._writer is None:
             raise IOError("dataset opened read-only; reopen with mode='a'")
@@ -228,12 +238,12 @@ class CZDataset:
             for q, field in fields.items():
                 if not QUANTITY_RE.match(q):
                     raise ValueError(f"invalid quantity name {q!r}")
-                field = np.asarray(field)
+                field = _as_field(field)
                 ent = self._m["quantities"].get(q)
-                if ent is not None and tuple(ent["shape"]) != field.shape:
+                if ent is not None and tuple(ent["shape"]) != tuple(field.shape):
                     raise ValueError(
                         f"quantity {q!r} has shape {tuple(ent['shape'])}, "
-                        f"append got {field.shape}")
+                        f"append got {tuple(field.shape)}")
                 member_spec = self._writer.spec_for(field)
                 if ent is not None and \
                         str(ent["dtype"]) != str(member_spec.np_dtype):

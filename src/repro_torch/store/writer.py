@@ -22,6 +22,7 @@ import dataclasses
 import warnings
 
 import numpy as np
+import torch
 
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.core import container
@@ -29,6 +30,12 @@ from repro_torch.core.pipeline import DTYPES, CompressionSpec
 from repro_torch.core.schemes import check_device, torch_device
 
 __all__ = ["ShardWriter", "DtypeCoercionWarning"]
+
+
+def _as_field(field) -> np.ndarray | torch.Tensor:
+    """A tensor as it is, on its own device; anything else as a numpy
+    array."""
+    return field if isinstance(field, torch.Tensor) else np.asarray(field)
 
 
 class DtypeCoercionWarning(UserWarning):
@@ -49,7 +56,7 @@ class ShardWriter:
         self._pool = (concurrent.futures.ThreadPoolExecutor(self.workers)
                       if self.workers > 1 else None)
 
-    def spec_for(self, field: np.ndarray) -> CompressionSpec:
+    def spec_for(self, field: np.ndarray | torch.Tensor) -> CompressionSpec:
         """Dataset spec re-tagged with the field's dtype (auto dtype tags).
         Dtypes the spec's scheme can't take (unsupported ones, or e.g.
         float64 into an fpzipx dataset) fall back to the spec's own dtype —
@@ -60,7 +67,8 @@ class ShardWriter:
         or ``"jax"``) is *not* coercible: it raises here even if the spec
         skipped validation (e.g. was rebuilt from a hand-edited manifest)."""
         check_device(self.spec.device)
-        dt = str(np.asarray(field).dtype)
+        # the numpy name of the dtype, read from a tensor without converting it
+        dt = str(_as_field(field).dtype).removeprefix("torch.")
         if dt == self.spec.dtype:
             return self.spec
         if dt not in DTYPES:
@@ -78,7 +86,7 @@ class ShardWriter:
                 DtypeCoercionWarning, stacklevel=3)
             return self.spec
 
-    def write(self, path: str, field: np.ndarray,
+    def write(self, path: str, field: np.ndarray | torch.Tensor,
               extra_header: dict | None = None,
               spec: CompressionSpec | None = None, store=None) -> int:
         """Stream one field into a CZ2 member; returns bytes written.
@@ -90,9 +98,11 @@ class ShardWriter:
         is then a store key); ``None`` writes a local file.  Members are
         fsynced (where the backend has an fd to sync): the dataset's
         atomic-manifest guarantee needs member data on stable storage
-        *before* the manifest references it.
+        *before* the manifest references it.  A tensor is passed on as it
+        is: stage 1 blocks it on the writer's device, where it already lies
+        on the in-situ path, and never writes to it.
         """
-        field = np.asarray(field)
+        field = _as_field(field)
         if field.ndim != 3:
             raise ValueError(f"expected a 3D field, got shape {field.shape}")
         return container.write_compressed(

@@ -18,3 +18,5 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers",
         "slow: long-running end-to-end tests (deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA device; skips without one")

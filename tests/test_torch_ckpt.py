@@ -15,13 +15,16 @@ the JAX package's (``repro.ckpt``), on the CPU.
   reference's side, with the same bits).
 * bfloat16 round-trips in a process where ``ml_dtypes`` cannot be imported.
 * ``FieldSnapshotter``: the reference's round trip on the port, and
-  snapshots either package wrote restore in the other.
+  snapshots either package wrote, from numpy or tensor fields, restore in
+  the other.  Tensor fields write their numpy twins' members and manifest
+  byte for byte, with no host copy and nothing counted on the CPU.
 """
 import collections
 import json
 import os
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -42,6 +45,8 @@ from repro_torch.ckpt import (Checkpointer, FieldSnapshotter, latest_step, load_
 from repro_torch.ckpt import checkpoint as tck
 from repro_torch.core.pipeline import CompressionSpec
 from repro_torch.store.writer import DtypeCoercionWarning
+
+from test_torch_dataset import tree
 
 torch.set_num_threads(1)
 
@@ -374,14 +379,14 @@ def test_field_snapshotter_round_trip(tmp_path):
     empty.close()
 
 
-@pytest.mark.parametrize("writer", ["ref", "port"])
+@pytest.mark.parametrize("writer", ["ref", "port", "port_tensor"])
 def test_snapshots_restore_in_the_other_package(tmp_path, writer):
     d = str(tmp_path / "snaps")
     spec_cls, make = ((RSpec, lambda **k: RSnapshotter(d, **k)) if writer == "ref" else
                       (CompressionSpec, lambda **k: FieldSnapshotter(d, device="cpu", **k)))
     snap = make(every=2, spec=spec_cls(scheme="fpzipx", block_size=BS), workers=2)
     for step in range(5):
-        snap.maybe_snapshot(_stepped(step), step)
+        snap.maybe_snapshot(_stepped(step, as_tensor=writer == "port_tensor"), step)
     snap.close()
     other = (FieldSnapshotter(d, device="cpu") if writer == "ref" else RSnapshotter(d))
     fields, step = other.restore()
@@ -399,6 +404,58 @@ def test_float64_field_under_fpzipx_warns(tmp_path):
     assert fields["p"].dtype == np.float32
     assert np.array_equal(fields["p"], FIELDS["p"])
     snap.close()
+
+
+# (field dtype, spec) -> whether the snapshot warns
+TWIN_CASES = {"float32-wavelet": ("float32", CompressionSpec(eps=EPS, block_size=BS), False),
+              "float64-fpzipx": ("float64", CompressionSpec(scheme="fpzipx", block_size=BS),
+                                 True)}
+
+
+@pytest.mark.parametrize("case", list(TWIN_CASES))
+def test_tensor_fields_write_their_numpy_twins_snapshots(tmp_path, case):
+    """Tensor fields go to stage 1 as they are, with no host copy; the
+    members and manifest they write are their numpy twins' byte for byte,
+    a coercion warns as the twin's does, and the tensors are not written."""
+    dtype, spec, warns = TWIN_CASES[case]
+    msgs = {}
+    for kind in ("numpy", "tensor"):
+        snap = FieldSnapshotter(str(tmp_path / kind), every=2, spec=spec, workers=2,
+                                device="cpu")
+        for step in (2, 4):
+            fields = {q: f.astype(dtype) for q, f in _stepped(step).items()}
+            if kind == "tensor":
+                fields = {q: torch.from_numpy(f) for q, f in fields.items()}
+                kept = {q: f.clone() for q, f in fields.items()}
+            if warns:
+                with pytest.warns(DtypeCoercionWarning) as rec:
+                    snap.maybe_snapshot(fields, step)
+                msgs.setdefault(kind, []).extend(str(w.message) for w in rec)
+            else:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("error")
+                    snap.maybe_snapshot(fields, step)
+            if kind == "tensor":
+                assert all(torch.equal(fields[q], kept[q]) for q in fields)
+        snap.close()
+    if warns:
+        assert msgs["tensor"] == msgs["numpy"] and len(msgs["numpy"]) == 4
+        assert "fpzipx" in msgs["numpy"][0]
+    assert tree(tmp_path / "tensor") == tree(tmp_path / "numpy")
+    assert "manifest.json" in tree(tmp_path / "tensor")
+
+
+@pytest.mark.parametrize("scheme", ["wavelet", "fpzipx"])
+def test_cpu_snapshot_of_cpu_tensors_counts_no_copy(tmp_path, scheme):
+    """On the CPU nothing crosses between host and card: a snapshot of CPU
+    tensors adds no ``cz_copy_bytes_total`` series and no byte to one."""
+    copies = obs.REGISTRY.get("cz_copy_bytes_total")
+    before = copies.samples()
+    snap = FieldSnapshotter(str(tmp_path / "s"), every=1, workers=2, device="cpu",
+                            spec=CompressionSpec(scheme=scheme, eps=EPS, block_size=BS))
+    assert snap.maybe_snapshot(_stepped(1, as_tensor=True), 1) == 0
+    snap.close()
+    assert copies.samples() == before
 
 
 # -- names and devices -------------------------------------------------------
@@ -464,8 +521,9 @@ def test_traced_snapshot_yields_the_span_tree(tmp_path):
                     ("stage1.transform", [("kernel.*", [])])]),
         ("stage2", [("encode", [])] * 4),
     ])
+    # the fields go to stage 1 as they are: no host copy under the snapshot
     assert _span_tree(events) == [("snapshot", sorted(
-        [("dataset.commit", [])] + [write] * 2 + [("snapshot.host_copy", [])] * 2, key=str))]
+        [("dataset.commit", [])] + [write] * 2, key=str))]
     (top,) = [e for e in events if e["name"] == "snapshot"]
     assert top["args"]["step"] == 3
     assert {e["args"]["quantity"] for e in events if e["name"] == "dataset.write"} == \

@@ -10,6 +10,8 @@ the reference where the two can run the same operations: what
 * Concurrent readers, hit/miss counters equal to the reference's, eviction
   pressure, and an evicted reader that still serves.
 * Dtype tags, and the coercion warnings with the reference's messages.
+* Tensor fields write their numpy twins' trees byte for byte, tags and
+  warnings included, count no copy on the CPU and are never written to.
 * Conformance over ``file``, ``mem://`` and ``range://`` stores, and a torn
   append through a ``FlakyStore``.
 * The torch device: checked at once (``"cuda"`` without a GPU raises, in
@@ -28,6 +30,7 @@ import torch
 from repro import store as rstore
 from repro.core import CompressionSpec as RSpec
 
+from repro_torch import obs
 from repro_torch.core import container as tcont
 from repro_torch.core.pipeline import CompressionSpec
 from repro_torch.store import (CZDataset, DtypeCoercionWarning, FileStore, FlakyStore,
@@ -138,6 +141,38 @@ def test_pooled_and_serial_members_byte_identical(tmp_path, scheme):
     write_port(tmp_path / "w1", scheme, stats=True)
     write_port(tmp_path / "w4", scheme, stats=True, workers=4)
     assert tree(tmp_path / "w4") == tree(tmp_path / "w1")
+
+
+def _as_tensors(appends):
+    return [({q: torch.from_numpy(f.copy()) for q, f in fields.items()}, time)
+            for fields, time in appends]
+
+
+# a cube of 2x2x2 blocks, and a column of 4 blocks whose blocked batch is a
+# view of the field itself (blockify copies nothing): stage 1 reads the
+# caller's memory there and must not write it
+SHAPES = {"cube": (N, N, N), "column": (4 * BS, BS, BS)}
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_tensor_appends_write_the_numpy_trees(tmp_path, scheme, shape):
+    """Tensor fields on the dataset's device write their numpy twins' tree
+    (members and manifest, ``stats=True``'s records included) byte for
+    byte, count no copy on the CPU and are left as they were."""
+    size = SHAPES[shape]
+    appends = [({q: f.reshape(-1)[:np.prod(size)].reshape(size) for q, f in fields.items()},
+                time) for fields, time in APPENDS]
+    tensors = _as_tensors(appends)
+    kept = [{q: f.clone() for q, f in fields.items()} for fields, _ in tensors]
+    copies = obs.REGISTRY.get("cz_copy_bytes_total")
+    write_port(tmp_path / "numpy", scheme, stats=True, workers=2, appends=appends)
+    before = copies.samples()
+    write_port(tmp_path / "tensor", scheme, stats=True, workers=2, appends=tensors)
+    assert copies.samples() == before
+    assert tree(tmp_path / "tensor") == tree(tmp_path / "numpy")
+    for (fields, _), old in zip(tensors, kept):
+        assert all(torch.equal(fields[q], old[q]) for q in fields)
 
 
 def test_shard_writer_member_is_plain_cz2(tmp_path):
@@ -267,27 +302,31 @@ DTYPE_CASES = {"float64-raw": ("float64", "raw", False),
                "int32-raw": ("int32", "raw", True)}
 
 
-@pytest.mark.parametrize("case", list(DTYPE_CASES))
+@pytest.mark.parametrize(
+    "case", list(DTYPE_CASES) + [f"{c}-tensor" for c in DTYPE_CASES])
 def test_dtype_tags_and_coercion_as_the_reference(tmp_path, case):
     """Each member is tagged with its field's dtype where the scheme takes
     it; otherwise the field is cast to the spec's dtype with a
     ``DtypeCoercionWarning`` carrying the reference's message.  The trees
-    are the reference's bytes."""
-    dtype, scheme, warns = DTYPE_CASES[case]
+    are the reference's bytes, also where the port is given the field as a
+    tensor (``-tensor``): its dtype is then read from the tensor."""
+    as_tensor = case.endswith("-tensor")
+    dtype, scheme, warns = DTYPE_CASES[case.removesuffix("-tensor")]
     f = {"p": (FIELDS["p"] * (100 if dtype == "int32" else 1)).astype(dtype)}
     msgs = []
     for pkg, sub in ((sys.modules["repro_torch.store"], "t"), (rstore, "r")):
         spec = (CompressionSpec if sub == "t" else RSpec)(scheme=scheme, **KW)
         kw = {"device": "cpu"} if sub == "t" else {}
+        given = ({"p": torch.from_numpy(f["p"])} if as_tensor and sub == "t" else f)
         with pkg.CZDataset(str(tmp_path / sub), "a", spec=spec, **kw) as ds:
             if warns:
                 with pytest.warns(pkg.DtypeCoercionWarning) as rec:
-                    ds.append(f)
+                    ds.append(given)
                 msgs.append([str(w.message) for w in rec])
             else:
                 with warnings.catch_warnings():
                     warnings.simplefilter("error")
-                    ds.append(f)
+                    ds.append(given)
     if warns:
         assert msgs[0] == msgs[1] and len(msgs[0]) == 1
     assert tree(tmp_path / "t") == tree(tmp_path / "r")
