@@ -267,18 +267,29 @@ class FieldSnapshotter:
     committed timestep of all quantities, so restart data gets the store's
     atomic manifest, random-access region reads and concurrent chunk
     encoding.
+
+    With a ``torch.distributed`` process group (``group=``, gloo), the
+    snapshots are the paper's in-situ ones over ranks: every rank of the
+    group opens the snapshotter on the same directory and calls
+    :meth:`maybe_snapshot` at the same steps with its own slab of each
+    quantity, a tensor on its own device.  Each snapshot's member of a
+    quantity holds the global field, the slabs stacked along axis 0 in
+    rank order, in one file that every rank writes at its Exscan offset;
+    rank 0 commits the timestep once every rank's bytes are in (see
+    :class:`repro_torch.store.CZDataset`).  A rank that fails makes every
+    rank raise.
     """
 
     def __init__(self, ds_dir: str, every: int = 1,
                  spec: CompressionSpec | None = None, workers: int = 1,
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, group=None):
         from repro_torch.store import CZDataset
 
         self.every = every
         self.ds = CZDataset(ds_dir, mode="a",
                             spec=spec or CompressionSpec(scheme="fpzipx",
                                                          shuffle="byte"),
-                            workers=workers, device=device)
+                            workers=workers, device=device, group=group)
         self._steps: dict[int, int] = {  # sim step -> dataset timestep
             int(ts["time"]): ts["t"]
             for q in self.ds.quantities

@@ -19,6 +19,13 @@ MPI stand-in:
    (``MPI_File_write_at``), and the parent appends the CZ2 JSON footer and
    patches the footer pointer.
 
+Steps 3 and 4 are the module's :func:`create_shared`, :func:`write_at` and
+:func:`write_footer`, which the in-situ path over a process group
+(:meth:`repro_torch.store.ShardWriter.place_shared`, where every rank holds
+its own slab on its own device) runs as well: each rank's write-at is the
+``cluster.write_at`` span and counts its bytes in
+``cz_shared_write_bytes_total{rank}``.
+
 Because rank cuts align with chunk boundaries and every registered scheme
 transforms blocks independently (the port's kernels give a block the same
 bits at any batch size), the assembled file is **bit-identical to the
@@ -67,7 +74,8 @@ from repro_torch.obs import trace
 
 from .decompose import chunk_spans
 
-__all__ = ["ParallelCompressor"]
+__all__ = ["ParallelCompressor", "DATA_START", "create_shared", "write_at",
+           "write_footer"]
 
 #: env override for the worker start method ("spawn" by default: a CUDA
 #: runtime cannot be re-initialized in a forked child)
@@ -81,6 +89,14 @@ _PHASE_SECONDS = obs.histogram(
 _COMPRESSIONS = obs.counter("cz_cluster_compressions_total",
                             "Parallel compress() calls by rank count.",
                             labelnames=("ranks",))
+
+_SHARED_BYTES = obs.counter("cz_shared_write_bytes_total",
+                            "Bytes each rank wrote into shared per-quantity files.",
+                            labelnames=("rank",))
+
+#: where a shared file's chunk data starts: after the magic and the footer
+#: pointer
+DATA_START = len(container.MAGIC) + container._FOOTER_PTR.size
 
 #: the pipeline stages a rank runs, reported on its ``encode`` span
 _RANK_STAGES = ("stage1", "serialize", "stage2_encode")
@@ -160,15 +176,58 @@ def _encode_rank(task) -> tuple[list[int], list[int], list[int], list]:
     return sizes, nblks, crcs, recs
 
 
+def create_shared(path: str) -> None:
+    """Start a shared file (truncating any earlier one): the magic and a
+    zero footer pointer, which :func:`write_footer` patches."""
+    with open(path, "wb") as f:
+        f.write(container.MAGIC)
+        f.write(container._FOOTER_PTR.pack(0))
+
+
+def write_at(path: str, offset: int, bufs, rank: int) -> int:
+    """``MPI_File_write_at``: ``bufs`` (an iterable of bytes) one after
+    another into the shared file at byte ``offset``, through a descriptor
+    of this rank's own; returns the bytes written.  The ``cluster.write_at``
+    span; the bytes count in ``cz_shared_write_bytes_total{rank}``."""
+    t0 = time.perf_counter_ns()
+    n = 0
+    fd = os.open(path, os.O_WRONLY)
+    try:
+        for buf in bufs:
+            view = memoryview(buf)
+            while view:
+                done = os.pwrite(fd, view, offset + n)
+                n += done
+                view = view[done:]
+    finally:
+        os.close(fd)
+    trace.record("cluster.write_at", t0, time.perf_counter_ns(), rank=int(rank),
+                 offset=int(offset), bytes=n)
+    _SHARED_BYTES.inc(n, rank=str(rank))
+    return n
+
+
+def write_footer(path: str, header: dict, tables, fsync: bool = False) -> int:
+    """Close a shared file whose chunk data every rank has written: the
+    footer from the ranks' chunk tables ``(sizes, nblocks, crc32s,
+    records)`` in rank order, which concatenated are the serial writer's
+    table, at the end of the data; returns the file's byte count."""
+    sizes = [s for t in tables for s in t[0]]
+    with open(path, "r+b") as f:
+        return container.commit_footer(
+            f, header, sizes, [n for t in tables for n in t[1]],
+            [c for t in tables for c in t[2]], DATA_START + sum(sizes),
+            fsync=fsync, records=[r for t in tables for r in t[3]])
+
+
 def _write_at(task) -> None:
     """Worker: copy this rank's part file into the shared file at its
     Exscan offset (the ``MPI_File_write_at`` step), then drop the part."""
     path, offset, part_path, rank, trace_path = task
     with _rank_tracing(rank, trace_path), \
             trace.span("commit", rank=rank, offset=int(offset)):
-        with open(part_path, "rb") as src, open(path, "r+b") as dst:
-            dst.seek(offset)
-            shutil.copyfileobj(src, dst, 1 << 20)
+        with open(part_path, "rb") as src:
+            write_at(path, offset, iter(lambda: src.read(1 << 20), b""), rank)
         os.unlink(part_path)
 
 
@@ -323,24 +382,14 @@ class ParallelCompressor:
             # == the serial writer's chunk table, through same layout code)
             t0 = time.perf_counter_ns()
             with trace.span("commit", ranks=nranks):
-                data_start = len(container.MAGIC) + 8
-                with open(path, "wb") as f:
-                    f.write(container.MAGIC)
-                    f.write(container._FOOTER_PTR.pack(0))
+                create_shared(path)
                 shared_created = True
                 self._get_pool().map(
                     _write_at,
-                    [(path, int(data_start + off), part, r, wr)
+                    [(path, int(DATA_START + off), part, r, wr)
                      for r, (off, part, (_enc, wr))
                      in enumerate(zip(offsets, parts, rank_traces))])
-                with open(path, "r+b") as f:
-                    nbytes = container.commit_footer(
-                        f, header,
-                        [s for ss, _, _, _ in enc for s in ss],
-                        [n for _, ns, _, _ in enc for n in ns],
-                        [c for _, _, cs, _ in enc for c in cs],
-                        data_start + int(totals.sum()), fsync=fsync,
-                        records=[r for _, _, _, rs in enc for r in rs])
+                nbytes = write_footer(path, header, enc, fsync=fsync)
             _PHASE_SECONDS.observe((time.perf_counter_ns() - t0) / 1e9,
                                    phase="commit")
             self._absorb_rank_traces(rank_traces)

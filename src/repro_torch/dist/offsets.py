@@ -8,14 +8,17 @@ the reference's); ``exclusive_offsets_sharded`` runs the same collective
 over a ``torch.distributed`` process group: each process scans its own
 shard locally and adds the total of all preceding shards, from one
 all-gather of per-shard totals — the two-phase Exscan a multi-host fleet
-would execute.
+would execute.  ``exscan_rows`` is the same collective as the rank-parallel
+snapshot path runs it: one row of int64 words a process, its byte total
+first, so that the one all-gather that places the bytes also carries what
+every rank has to agree on.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["exclusive_offsets_np", "exclusive_offsets_sharded"]
+__all__ = ["exclusive_offsets_np", "exclusive_offsets_sharded", "exscan_rows"]
 
 
 def exclusive_offsets_np(sizes) -> np.ndarray:
@@ -43,11 +46,24 @@ def exclusive_offsets_sharded(local_sizes, group=None) -> torch.Tensor:
     place.  The tensor lies where the group's backend needs it (the CPU
     for gloo).
     """
+    local = torch.as_tensor(local_sizes, dtype=torch.int64).reshape(-1)
+    base, _rows = exscan_rows(local.sum().reshape(1), group=group)
+    return torch.cumsum(local, 0) - local + base
+
+
+def exscan_rows(row, group=None) -> tuple[int, torch.Tensor]:
+    """The Exscan over ``row[0]``, every process's byte total, with the
+    rest of each process's ``row`` gathered beside it: this process's
+    offset (the sum of the lower ranks' totals) and the ``(processes,
+    len(row))`` int64 table of all rows in rank order, from one all-gather
+    (counted as ``cz_collective_calls_total{op="exscan"}``)."""
     import torch.distributed as dist
 
-    local = torch.as_tensor(local_sizes, dtype=torch.int64).reshape(-1)
-    total = local.sum().reshape(1)
-    totals = [torch.empty_like(total) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(totals, total, group=group)
-    base = torch.cat(totals)[:dist.get_rank(group)].sum()
-    return torch.cumsum(local, 0) - local + base
+    from .collective import CALLS
+
+    mine = torch.as_tensor(row, dtype=torch.int64).reshape(-1)
+    rows = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(rows, mine, group=group)
+    CALLS.inc(op="exscan")
+    rows = torch.stack(rows)
+    return int(rows[:dist.get_rank(group), 0].sum()), rows

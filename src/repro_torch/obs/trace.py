@@ -8,6 +8,11 @@ collected events as Chrome trace-event JSON — load the file in Perfetto
 (https://ui.perfetto.dev) or ``chrome://tracing`` to see per-thread and
 per-rank tracks.
 
+A process that is one rank of a group (the rank-parallel snapshot path)
+sets its rank once with :func:`set_rank`; every event it records from then
+on carries ``rank`` in its ``args``, and :func:`gather_events` brings every
+rank's events onto one rank's timeline at the end of a run.
+
 Disabled is the default and costs almost nothing: :func:`span` returns a
 shared no-op context manager after one attribute check, so instrumented hot
 paths (per-chunk encode, store gets) stay within noise when nobody is
@@ -43,7 +48,7 @@ from repro_torch.obs import context as _context
 
 __all__ = ["Tracer", "TRACER", "span", "traced", "tracing", "enable",
            "disable", "record", "next_id", "current_id", "reset", "save",
-           "merge_traces"]
+           "merge_traces", "set_rank", "gather_events"]
 
 
 class _NullSpan:
@@ -121,6 +126,9 @@ class Tracer:
         self.enabled = False
         self.pid = os.getpid()
         self.process_name = process_name or "main"
+        #: this process's rank in its group, stamped on every event it
+        #: records (``None``: not one rank of a group)
+        self.rank = None
         self._lock = threading.Lock()
         self._events: list[dict] = []
         self._threads: dict[int, str] = {}
@@ -203,6 +211,8 @@ class Tracer:
         :meth:`defer` callable may complete."""
         if not self.enabled:
             return None
+        if self.rank is not None and "rank" not in args:
+            args["rank"] = self.rank
         ev = {"name": name, "ph": "X", "cat": "repro",
               "ts": (t0_ns - self._origin_ns) / 1e3,
               "dur": (t1_ns - t0_ns) / 1e3,
@@ -379,6 +389,30 @@ def reset() -> None:
 
 def save(path: str) -> str:
     return TRACER.save(path)
+
+
+def set_rank(rank: int | None) -> None:
+    """Stamp ``rank`` on every event this process records from now on."""
+    TRACER.rank = None if rank is None else int(rank)
+
+
+def gather_events(group=None, dst: int = 0) -> list[dict] | None:
+    """Every rank's events, on rank ``dst`` of ``group``, ``None`` on the
+    others: a collective, called by every rank at the same point.  Each
+    rank's events are shifted onto ``dst``'s timeline by the tracers'
+    wall-clock anchors (as :meth:`Tracer.absorb` shifts them), so their
+    ``ts`` count from ``dst``'s origin; their ``args`` keep each rank's
+    ``rank``.  Deferred device times are completed first, on each rank."""
+    from repro_torch.dist.collective import gather_objects
+
+    got = gather_objects((TRACER.events(), TRACER._epoch_us), group, dst=dst)
+    if got is None:
+        return None
+    out = []
+    for evs, epoch_us in got:
+        shift = epoch_us - TRACER._epoch_us
+        out += [{**ev, "ts": ev["ts"] + shift} if "ts" in ev else ev for ev in evs]
+    return out
 
 
 def merge_traces(sources, out: str | None = None, pids=None) -> dict:

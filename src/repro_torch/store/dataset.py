@@ -20,6 +20,14 @@ anything registered), or a :class:`~repro_torch.store.backends.Store`
 instance.  Manifests and members are the reference's bytes, so either
 package opens a dataset the other wrote.
 
+With a ``torch.distributed`` process group (``group=``), an append is
+collective: every rank of the group appends at the same point, each with
+its own slab of every quantity (on its own device), and each member holds
+the global field, the slabs stacked along axis 0 in rank order, written by
+all ranks into one shared file (see :mod:`repro_torch.store.writer`).  Rank
+0 owns the manifest: it commits the timestep only once every rank's bytes
+are in every member and each member's footer is fsynced.
+
 Every stage 1 and every decode runs on the torch ``device`` the dataset is
 opened with (default ``"cuda"``, checked at once: without a GPU it raises):
 the :class:`ShardWriter`'s writes, the readers behind ``read_box`` and
@@ -28,6 +36,8 @@ the :class:`ShardWriter`'s writes, the readers behind ``read_box`` and
 from __future__ import annotations
 
 import collections
+import contextlib
+import os
 import threading
 
 import numpy as np
@@ -100,15 +110,23 @@ class CZDataset:
         Torch device of every stage 1 and decode (``"cuda"`` or ``"cpu"``).
         ``spec.device`` stays provenance: each member's header records where
         its stage 1 ran.
+    group:
+        A ``torch.distributed`` process group (gloo) whose ranks append
+        together (append mode, a file store, no ``stats``); ``None``
+        appends alone.  Opening is collective too: rank 0 reads or creates
+        the manifest, then the others read it.
     """
 
     def __init__(self, root, mode: str = "r",
                  spec: CompressionSpec | None = None, workers: int = 1,
                  cache_readers: int = 8, cache_chunks: int = 8,
                  stats: bool = False, prefetch: int = 0,
-                 device=DEFAULT_DEVICE):
+                 device=DEFAULT_DEVICE, group=None):
         if mode not in ("r", "a"):
             raise ValueError(f"mode must be 'r' or 'a', got {mode!r}")
+        if group is not None and (mode != "a" or stats):
+            raise ValueError("a dataset shared by a group appends (mode='a') "
+                             "and records no stats")
         self.device = torch_device(device)
         self.store = open_store(root)
         self.root = (self.store.url if isinstance(root, Store) else str(root))
@@ -124,18 +142,51 @@ class CZDataset:
             collections.OrderedDict()
         self._retired_decoded = 0
         self._retired_hits = 0
+        self._group = group
 
-        try:
-            self._m = read_manifest(self.store)
-        except ManifestError:
-            if mode != "a" or self.store.exists(MANIFEST_NAME):
-                raise  # corrupt, or missing in read-only mode: surface it
-            self._m = new_manifest((spec or CompressionSpec()).validate().to_json())
-            write_manifest(self.store, self._m)
+        if group is not None and getattr(self.store, "path_for", None) is None:
+            raise ValueError("a dataset shared by a group needs a file store: "
+                             "every rank writes at its offset in each member")
+        if group is None:
+            self._m = self._open_manifest(spec)
+        else:
+            self._m = self._open_shared(spec)
         self.spec = CompressionSpec.from_json(self._m["spec"])
         self._writer = (ShardWriter(self.spec, workers=workers,
                                     device=self.device)
                         if mode == "a" else None)
+
+    def _open_manifest(self, spec: CompressionSpec | None) -> dict:
+        try:
+            return read_manifest(self.store)
+        except ManifestError:
+            if self.mode != "a" or self.store.exists(MANIFEST_NAME):
+                raise  # corrupt, or missing in read-only mode: surface it
+            m = new_manifest((spec or CompressionSpec()).validate().to_json())
+            write_manifest(self.store, m)
+            return m
+
+    def _open_shared(self, spec: CompressionSpec | None) -> dict:
+        """Rank 0 opens (or creates) the manifest, then tells the others,
+        which read it: every rank raises if rank 0 failed."""
+        import torch.distributed as dist
+
+        from repro_torch.dist.collective import broadcast_object
+
+        me = dist.get_rank(self._group)
+        trace.set_rank(me)
+        m, error = None, None
+        if me == 0:
+            try:
+                m = self._open_manifest(spec)
+            except Exception as e:  # noqa: BLE001 - the other ranks learn of it
+                error = e
+        said = broadcast_object(None if error is None else repr(error), self._group)
+        if error is not None:
+            raise error
+        if said is not None:
+            raise RuntimeError(f"rank 0 could not open the dataset: {said}")
+        return m if m is not None else read_manifest(self.store)
 
     # -- introspection -----------------------------------------------------
 
@@ -225,6 +276,8 @@ class CZDataset:
             raise IOError("dataset opened read-only; reopen with mode='a'")
         if not fields:
             raise ValueError("append needs at least one quantity")
+        if self._group is not None:
+            return self._append_shared(fields, time)
         with self._lock:
             # re-read before patching: merge_manifests (rank sidecars) may
             # have committed entries since this handle last saw the manifest
@@ -287,6 +340,71 @@ class CZDataset:
             self._m["version"] = int(self._m["version"]) + 1
             with trace.span("dataset.commit", t=t):
                 write_manifest(self.store, self._m)
+            return t
+
+    def _append_shared(self, fields: dict, time: float | None) -> int:
+        """:meth:`append` by every rank of the group: each member is placed
+        QoI by QoI (encode, Exscan, write-at), then rank 0 closes them all
+        and commits the manifest (see :meth:`ShardWriter.commit_shared`).
+        Every rank hands in the same quantities in the same order."""
+        import torch.distributed as dist
+
+        me = dist.get_rank(self._group)
+        with self._lock:
+            self._m = read_manifest(self.store)
+            t = int(self._m["next_t"])
+            parts, specs = [], []
+            for q, field in fields.items():
+                rel = f"{q}/t{t:06d}.cz"
+                with trace.span("dataset.write", quantity=q, t=t):
+                    try:
+                        if not QUANTITY_RE.match(q):
+                            raise ValueError(f"invalid quantity name {q!r}")
+                        field = _as_field(field)
+                        specs.append(self._writer.spec_for(field))
+                        part = self._writer.encode_part(
+                            field, spec=specs[-1],
+                            extra_header={"quantity": q, "t": t, "time": time})
+                    except Exception as e:  # noqa: BLE001 - raised on every rank
+                        part = e
+                    try:
+                        parts.append(self._writer.place_shared(rel, part, self._group,
+                                                               store=self.store))
+                    except BaseException:
+                        if me == 0:  # the members placed before this one
+                            for p in parts:
+                                with contextlib.suppress(FileNotFoundError):
+                                    os.unlink(p.path)
+                        raise
+
+            def commit(nbytes: list[int], headers: list[dict]) -> None:
+                for (q, spec), n, h in zip(zip(fields, specs), nbytes, headers):
+                    ent = self._m["quantities"].get(q)
+                    if ent is not None and tuple(ent["shape"]) != tuple(h["field_shape"]):
+                        raise ValueError(f"quantity {q!r} has shape {tuple(ent['shape'])}, "
+                                         f"the ranks' slabs make {tuple(h['field_shape'])}")
+                    if ent is not None and str(ent["dtype"]) != str(spec.np_dtype):
+                        raise ValueError(f"quantity {q!r} is {ent['dtype']}, append got "
+                                         f"{spec.np_dtype}")
+                for (q, spec), n, h in zip(zip(fields, specs), nbytes, headers):
+                    ent = self._m["quantities"].setdefault(q, {
+                        "shape": list(h["field_shape"]), "dtype": str(spec.np_dtype),
+                        "timesteps": []})
+                    rec = {"t": t, "time": time, "file": f"{q}/t{t:06d}.cz",
+                           "bytes": int(n), "raw_bytes": int(h["raw_bytes"])}
+                    if spec.scheme == "auto":
+                        mix = container.describe(rec["file"], store=self.store).get("schemes")
+                        if mix:
+                            rec["schemes"] = mix
+                    ent["timesteps"].append(rec)
+                self._m["next_t"] = t + 1
+                self._m["version"] = int(self._m["version"]) + 1
+                with trace.span("dataset.commit", t=t):
+                    write_manifest(self.store, self._m)
+
+            self._writer.commit_shared(parts, self._group, fsync=True, then=commit)
+            if me != 0:
+                self._m = read_manifest(self.store)
             return t
 
     # -- random access -----------------------------------------------------
