@@ -38,6 +38,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  + spacing(50); residuals over all of int32 (wrapping) at
                  n = 16, 32 and 64, B = 64, and a subnormal 2 eps decode to
                  the same bits.
+                 wavelet_pack: at each wavelet side and batch above, the
+                 forward's output of blocks uniform in [-50, 50] at eps
+                 1e-3 and 20, and of the blocks scaled by 2e-5 at eps
+                 1e-3 (the line reports each case's share of values
+                 kept): counts, packed mask, coarse corners and details
+                 equal the plain version's on the card, bit for bit.
                  Containers written on the card decode on the CPU's plain
                  path and the other way round: wavelet within the scheme's
                  bound of 100 eps, with the chunk bytes of a container
@@ -414,7 +420,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
                  wavelet kernels at n = 64 (forward B = 512, one QoI;
                  inverse B = 4, one read chunk), and the lorenzo decode at
                  n = 64 (B = 4, a read chunk) and the wavelet staged kernel
-                 at n = 128 (B = 1, 5 levels): its launches on its path (the
+                 at n = 128 (B = 1, 5 levels), and the pack over the
+                 forward's output at B = 4096 (nearly every detail kept
+                 at +-50; its bytes: each coefficient read, the counts,
+                 the mask, the coarse corners and the details written
+                 once), its row also carrying its run on the in-situ
+                 cells' fields (``euler512``: ``euler512.w3ai``'s p and
+                 rho after 10 steps, bit-equal to the plain version on the
+                 CPU, with the share of details kept and the bytes that
+                 cross the bus): its launches on its path (the
                  n = 64 wavelet rows on block64_path; the lorenzo n = 64 and
                  wavelet n = 128 rows: the launches at that side counted per
                  side over every path's run, 0 while no path runs it),
@@ -487,15 +501,18 @@ BITS_BLOCKS = {64: 8}
 EPS = 1e-3
 ZFPX_BOUND = 16 * EPS       # the zfpx scheme's declared bound
 N_MAIN, T_MAIN = 512, 9.4
-KERNEL_SOURCES = ("wavelet3d", "zfp_transform", "lorenzo")
+KERNEL_SOURCES = ("wavelet3d", "wavelet_pack", "zfp_transform", "lorenzo")
 ZFPX_PATH_QOIS = ("p",)     # one QoI: its four took 187-238 s, mostly zlib
 LORENZO_PATH_QOIS = ("p",)  # one QoI: its four took 285 s, 95% zlib
 AUTO_TARGET = 1e-3          # auto_path's target, abs=1e-3
 AUTO_TRIALS_STRIDE = 8      # auto_trials checks every 8th chunk of the 128
 # each kernel row's label in cz_kernel_calls_total
 KERNEL_LABELS = {"wavelet3d_forward": "wavelet_forward", "wavelet3d_inverse": "wavelet_inverse",
+                 "wavelet_pack": "wavelet_pack",
                  "zfpx_encode": "zfpx_encode", "zfpx_decode": "zfpx_decode",
                  "lorenzo_encode": "lorenzo_encode", "lorenzo_decode": "lorenzo_decode"}
+# the wavelet scheme's stage 1 launches the pack once after each forward
+# transform, and no other code launches either
 
 
 def auto_bound(max_abs: float) -> float:
@@ -600,6 +617,60 @@ def wavelet_bound_ms(kind: str, n: int, levels: int, nblocks: int) -> tuple[floa
     return bound_ms(nbytes, wavelet_flops(kind, n, levels, nblocks), FP32_FLOPS_PER_S)
 
 
+def pack_bound_ms(n: int, levels: int, nblocks: int, ndetails: int) -> tuple[float, str]:
+    """The pack's bytes: each coefficient read once; the counts, the mask
+    at a bit a cell, the coarse corners and the details written once."""
+    c = n >> levels
+    nbytes = nblocks * (4 * n ** 3 + n ** 3 // 8 + 4 * c ** 3 + 4) + 4 * ndetails
+    return bound_ms(nbytes, 0, FP32_FLOPS_PER_S)
+
+
+# the in-situ benchmark's configuration, whose fields the pack row also runs
+EULER512_CONFIG = os.path.join("perfbench", "configs", "euler512.w3ai.json")
+EULER512_STEPS, EULER512_SEED = 10, 1
+
+
+def pack_euler512(torch, ops) -> dict:
+    """The pack kernel on the fields the in-situ cells snapshot: the
+    ``euler512.w3ai`` state (``perfbench``'s producer and configuration,
+    seed ``EULER512_SEED``) after ``EULER512_STEPS`` steps, p and rho,
+    blocked and transformed as stage 1 does.  Each QoI's four outputs must
+    equal the plain version's on the CPU bit for bit; prints the share of
+    details kept, the bytes that cross the bus against the dense stage 1's
+    5 B a cell, and the kernel's time beside its bound."""
+    from perfbench.producers import euler3d as pb
+    from repro_torch.core import blocks as blk
+    from repro_torch.kernels.wavelet_pack import pack_plain
+
+    with open(os.path.join(ROOT, EULER512_CONFIG)) as f:
+        cfg = json.load(f)
+    n, lv = cfg["spec"]["block_size"], 3
+    U = pb.init_bubble_cloud(cfg["n"], cfg["cloud"], EULER512_SEED, "cuda",
+                             p_ambient=cfg["p_ambient"], p_bubble=cfg["p_bubble"],
+                             rho_liquid=cfg["rho_liquid"], rho_gas=cfg["rho_gas"])
+    dt = pb.cfl_dt(U, cfg["cfl"])
+    for _ in range(EULER512_STEPS):
+        U = pb.step(U, dt)
+    fields = pb.qoi_fields(U, ("p", "rho"))
+    del U
+    out = {}
+    for q, field in fields.items():
+        y = ops.wavelet_forward(blk.blockify(field, n).contiguous(), "w3ai", lv)
+        got = ops.wavelet_pack(y, EPS, lv)
+        check(_bit_equal(torch, tuple(t.cpu() for t in got), pack_plain(y.cpu(), EPS, lv)),
+              f"wavelet_pack on euler512.w3ai {q}: not bit-equal to the plain version")
+        nblocks, nd = y.shape[0], got[3].numel()
+        b_ms, b_by = pack_bound_ms(n, lv, nblocks, nd)
+        out[q] = {"blocks": nblocks, "details": nd,
+                  "significant_share": nd / (nblocks * (n ** 3 - (n >> lv) ** 3)),
+                  "packed_bytes": sum(t.numel() * t.element_size() for t in got),
+                  "dense_bytes": 5 * y.numel(),
+                  "ms": kernel_ms(lambda: ops.wavelet_pack(y, EPS, lv), "wavelet_pack_", 20, 3),
+                  "call_ms": median_ms(lambda: ops.wavelet_pack(y, EPS, lv), 20),
+                  "bound_ms": b_ms, "bound_by": b_by, "bit_equal": True}
+    return out
+
+
 # zfpx operations per 4^3 cell: the lifting (16 per 4-vector, 16 vectors per
 # axis, 3 axes) and, per value, encode's flush (2), |x| and max (2), scale
 # (1), conversion (1) and truncation (2), or decode's conversion (1), scale
@@ -629,6 +700,8 @@ def lorenzo_bound_ms(n: int, nblocks: int, decode: bool) -> tuple[float, str]:
 
 
 def phase_parity(torch, wv, ops) -> dict:
+    from repro_torch.kernels.wavelet_pack import pack_plain
+
     g = torch.Generator(device="cuda")
     g.manual_seed(12)
     worst = {"forward_vs_plain": 0.0, "inverse_vs_plain": 0.0, "round_trip": 0.0,
@@ -661,8 +734,19 @@ def phase_parity(torch, wv, ops) -> dict:
                 for k, e in errs.items():
                     worst[k] = max(worst[k], e)
                 per_case[tag] = [errs[k] for k in worst]
+    pack = {}
+    for n, nb in PARITY_SIDES:
+        lv = wv.max_levels(n)
+        x = torch.rand((nb, n, n, n), generator=g, device="cuda") * (2 * AMP) - AMP
+        for scale, eps in ((1.0, EPS), (1.0, 20.0), (2e-5, EPS)):
+            y = ops.wavelet_forward(x * scale, "w3ai", lv)
+            got = ops.wavelet_pack(y, eps, lv)
+            check(_bit_equal(torch, got, pack_plain(y, eps, lv)),
+                  f"wavelet_pack vs plain: n={n} B={nb} scale={scale} eps={eps}")
+            pack[f"n={n} scale={scale:g} eps={eps:g}"] = got[3].numel() / y.numel()
     return {"cases": len(per_case), "sides_blocks": PARITY_SIDES, "max_abs_err": worst,
-            "batch_invariant": True, "per_case_err": {"columns": list(worst), **per_case}}
+            "batch_invariant": True, "per_case_err": {"columns": list(worst), **per_case},
+            "pack_kept_share": pack}
 
 
 def phase_bits(torch, wv, sz, ops) -> dict:
@@ -1020,10 +1104,11 @@ def phase_auto_trials(torch, wv, zf, sz, ops, p512) -> dict:
 
     from repro_torch.core import blocks as blk
     from repro_torch.core.pipeline import CompressionSpec, Pipeline
+    from repro_torch.kernels.wavelet_pack import pack_plain
     from repro_torch.tune import bound, trial
 
     plain = {"wavelet_forward": wv.forward3d, "wavelet_inverse": wv.inverse3d,
-             "zfpx_encode": zf.encode, "zfpx_decode": zf.decode,
+             "wavelet_pack": pack_plain, "zfpx_encode": zf.encode, "zfpx_decode": zf.decode,
              "lorenzo_encode": sz.encode, "lorenzo_decode": sz.decode}
     real = {name: getattr(ops, name) for name in plain}
     calls, lock = [], threading.Lock()
@@ -1266,9 +1351,11 @@ def _launch_counter(phase: str, sides: list[dict]):
     """``counted(expected, what, fn)`` for one phase: runs ``fn`` with every
     launch count set to 0 just before, checks the launches read just after
     against ``expected`` (per kernel row; absent rows 0) and adds them to
-    the phase's totals.  It returns ``fn``'s value, its seconds and the
-    launches in all.  The totals (per wrapper, and per wrapper and block
-    side) come back beside ``counted``, in the shape ``_path_rows`` reads."""
+    the phase's totals; the pack's expectation, unless given, is the
+    forward transform's (stage 1 launches one after each).  It returns
+    ``fn``'s value, its seconds and the launches in all.  The totals (per
+    wrapper, and per wrapper and block side) come back beside ``counted``,
+    in the shape ``_path_rows`` reads."""
     totals = dict.fromkeys(KERNEL_LABELS, 0)
     by_side: dict = {}
 
@@ -1279,6 +1366,7 @@ def _launch_counter(phase: str, sides: list[dict]):
         dt = time.perf_counter() - t0
         launches = _cuda_launches()
         want = {k: expected.get(k, 0) for k in KERNEL_LABELS}
+        want["wavelet_pack"] = expected.get("wavelet_pack", want["wavelet3d_forward"])
         check(launches == want, f"{phase} {what}: launches {launches}, expected {want}")
         for k, v in launches.items():
             totals[k] += v
@@ -1653,8 +1741,9 @@ def _rank_tracks(events: list[dict], nranks: int, row: str, what: str) -> list[d
     """Each rank's track in a compress's absorbed trace: its ``encode``
     span, whose launch counts (read in the rank's own process, from its
     wrappers' launch sites, across the encode) must be exactly one launch
-    of ``row``'s kernel, and that kernel's one ``kernel.*`` span on the card,
-    for its timing.  Returns per rank its launches (per wrapper and per
+    of ``row``'s kernel (and, for the wavelet forward, one of the pack
+    after it), and those kernels' ``kernel.*`` spans on the card, the
+    first for its timing.  Returns per rank its launches (per wrapper and per
     side), its encode wall and stage seconds, its stage 1 and kernel spans
     (us on the parent's timeline) and its commit wall."""
     out = []
@@ -1663,12 +1752,13 @@ def _rank_tracks(events: list[dict], nranks: int, row: str, what: str) -> list[d
         enc = [e for e in mine if e["name"] == "encode" and e.get("args", {}).get("rank") == r]
         check(len(enc) == 1, f"parallel_path {what}: rank {r} has {len(enc)} encode spans")
         launches = enc[0]["args"]["launches"]
-        check(launches == {KERNEL_LABELS[row]: 1},
-              f"parallel_path {what}: rank {r} launched {launches}, not one {row} on the card")
+        labels = [KERNEL_LABELS[row]] + (["wavelet_pack"] if row == "wavelet3d_forward" else [])
+        check(launches == dict.fromkeys(labels, 1),
+              f"parallel_path {what}: rank {r} launched {launches}, not one {labels} on the card")
         calls = [(e["args"]["kernel"], e["args"]["device"]) for e in mine
                  if e["name"].startswith("kernel.")]
-        check(calls == [(KERNEL_LABELS[row], "cuda")],
-              f"parallel_path {what}: rank {r}'s kernel spans {calls}, not one {row} on cuda")
+        check(calls == [(k, "cuda") for k in labels],
+              f"parallel_path {what}: rank {r}'s kernel spans {calls}, not one {labels} on cuda")
         kern = next(e for e in mine if e["name"].startswith("kernel."))
         s1 = [e for e in mine if e["name"] == "stage1"]
         check(len(s1) == 1, f"parallel_path {what}: rank {r} has {len(s1)} stage1 spans")
@@ -3876,13 +3966,20 @@ def kernel_rows(torch, wv, zf, sz, ops, lkern, launches: dict,
     the inverse over one 4-block chunk; and the lorenzo decode at n = 64
     over a 4-block chunk and the wavelet staged kernel at n = 128 (B = 1,
     5 levels), sides that no path runs yet.  The lorenzo decode's rows also
-    carry the design its library launches at their side."""
+    carry the design its library launches at their side.  The pack runs over
+    the forward's output of the QoI's 4096 random blocks (nearly every
+    detail kept), and its row carries its run on the in-situ cells' fields
+    too (:func:`pack_euler512`)."""
+    from repro_torch.kernels.wavelet_pack import pack_plain
+
     g = torch.Generator(device="cuda")
     g.manual_seed(34)
     kind, n, lv = "w3ai", 32, 3   # the main path's spec
     nblocks = (N_MAIN // n) ** 3
     x = torch.rand((nblocks, n, n, n), generator=g, device="cuda") * (2 * AMP) - AMP
-    chunk = ops.wavelet_forward(x, kind, lv)[:32].contiguous()
+    y = ops.wavelet_forward(x, kind, lv)
+    chunk = y[:32].contiguous()
+    ndense = ops.wavelet_pack(y, EPS, lv)[3].numel()  # nearly every detail, at +-50
     x64 = x.view(-1, 64, 64, 64)  # 512 blocks of 64^3 (4 levels), as random
     chunk64 = ops.wavelet_forward(x64, kind, 4)[:4].contiguous()
     x128 = x.view(-1, 128, 128, 128)[:1].contiguous()
@@ -3894,6 +3991,7 @@ def kernel_rows(torch, wv, zf, sz, ops, lkern, launches: dict,
     wsrc, zsrc, lsrc = ("src/repro_torch/kernels/csrc/wavelet3d.cu",
                         "src/repro_torch/kernels/csrc/zfp_transform.cu",
                         "src/repro_torch/kernels/csrc/lorenzo.cu")
+    psrc = "src/repro_torch/kernels/csrc/wavelet_pack.cu"
 
     table = [
         ("wavelet3d_forward", wsrc, "src/repro/kernels/wavelet3d.py:139",
@@ -3912,6 +4010,9 @@ def kernel_rows(torch, wv, zf, sz, ops, lkern, launches: dict,
          "wavelet3d_cluster_kernel",
          lambda: ops.wavelet_inverse(chunk64, kind, 4), lambda: wv.inverse3d(chunk64, kind, 4),
          50, 4, wavelet_bound_ms(kind, 64, 4, 4)),
+        ("wavelet_pack", psrc, "none (the host's selection in serialize)", "wavelet_pack_",
+         lambda: ops.wavelet_pack(y, EPS, lv), lambda: pack_plain(y, EPS, lv),
+         20, nblocks, pack_bound_ms(n, lv, nblocks, ndense)),
         ("zfpx_encode", zsrc, "src/repro/kernels/zfp_transform.py:56", "zfpx_encode_kernel",
          lambda: ops.zfpx_encode(x, EPS), lambda: zf.encode(x, EPS),
          20, nblocks, zfpx_bound_ms(n, nblocks, decode=False)),
@@ -3936,10 +4037,12 @@ def kernel_rows(torch, wv, zf, sz, ops, lkern, launches: dict,
          lambda: ops.wavelet_inverse(chunk128, kind, 5), lambda: wv.inverse3d(chunk128, kind, 5),
          20, 1, wavelet_bound_ms(kind, 128, 5, 1)),
     ]
-    # CUDA kernels per call: the staged wavelet kernel runs once per level and axis
-    per_call = {"wavelet3d_forward_n128": 15, "wavelet3d_inverse_n128": 15}
+    # CUDA kernels per call: the staged wavelet kernel runs once per level and
+    # axis, the pack's mask, scan and select kernels once each
+    per_call = {"wavelet3d_forward_n128": 15, "wavelet3d_inverse_n128": 15, "wavelet_pack": 3}
     designs = {"lorenzo_decode": lkern.decode_design(n),
-               "lorenzo_decode_n64": lkern.decode_design(64)}
+               "lorenzo_decode_n64": lkern.decode_design(64),
+               "wavelet_pack": {"details": ndense}}
     rows = []
     for name, src, replaces, symbol, call, plain, reps, blocks, (b_ms, b_by) in table:
         got, want = call(), plain()
@@ -3960,6 +4063,7 @@ def kernel_rows(torch, wv, zf, sz, ops, lkern, launches: dict,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "blocks": blocks, **designs.get(name, {}),
         })
+    next(r for r in rows if r["name"] == "wavelet_pack")["euler512"] = pack_euler512(torch, ops)
     return rows
 
 
@@ -4017,13 +4121,15 @@ def main() -> int:
         region = {k: os.path.join(tmp, "region", f"{k}.cz") for k in REGION_CONTAINERS}
         main_path = run_cli_path(tmp, "main_path", [], "CompressionSpec() defaults",
                                  lambda _m: 100 * EPS,
-                                 ("wavelet3d_forward", "wavelet3d_inverse"), sides,
+                                 ("wavelet3d_forward", "wavelet_pack", "wavelet3d_inverse"),
+                                 sides,
                                  keep=region["wavelet"])
         emit({"phase": "main_path", **main_path})
         block64_path = run_cli_path(tmp, "block64_path", ["--block-size", "64"],
                                     "CompressionSpec(block_size=64): w3ai, eps 1e-3, 4 "
                                     "levels, byte shuffle, zlib", lambda _m: 100 * EPS,
-                                    ("wavelet3d_forward", "wavelet3d_inverse"), sides,
+                                    ("wavelet3d_forward", "wavelet_pack",
+                                     "wavelet3d_inverse"), sides,
                                     ("p",))
         emit({"phase": "block64_path", **block64_path})
         zfpx_path = run_cli_path(tmp, "zfpx_path", ["--scheme", "zfpx"],
@@ -4097,7 +4203,7 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's launches on its own path
     wavelet = ("wavelet3d_forward", "wavelet3d_inverse")
-    launches = {k: main_path["launches"][k] for k in wavelet}
+    launches = {k: main_path["launches"][k] for k in (*wavelet, "wavelet_pack")}
     launches.update({f"{k}_n64": block64_path["launches"][k] for k in wavelet})
     launches.update({k: zfpx_path["launches"][k] for k in ("zfpx_encode", "zfpx_decode")})
     launches.update({k: lorenzo_path["launches"][k]

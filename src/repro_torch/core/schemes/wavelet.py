@@ -8,11 +8,13 @@ significance bitmask, then the coarse corner + significant details as one
 shuffled float32 stream.
 
 The blocks stay on their device through the forward transform and the
-mask (trace span ``stage1.transform``); only the mask, the coefficients
-and the coarse corner come to the host (``stage1.to_host``, its bytes in
-``cz_copy_bytes_total``).  On the card both spans carry the card's time.
-On decode each chunk's coefficients go to the device for the inverse
-transform.  On a CUDA device both transforms are the hand-written kernels.
+selection (``ops.wavelet_pack``: counts, packed mask, coarse corners and
+the stream of significant details; trace span ``stage1.transform``).  Only
+those four come to the host (``stage1.to_host``, their bytes in
+``cz_copy_bytes_total``), and serialize cuts each chunk's bytes out of them
+by slicing.  On the card both spans carry the card's time.  On decode each
+chunk's coefficients go to the device for the inverse transform.  On a CUDA
+device the transforms and the selection are the hand-written kernels.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from repro_torch.kernels import _obs as kobs
 from repro_torch.kernels import ops
 
 from .. import shuffle as shuf
-from .. import threshold, wavelets
+from .. import wavelets
 from . import Scheme, register_scheme, shuffle_bytes, unshuffle_bytes
 
 
@@ -58,31 +60,31 @@ class WaveletScheme(Scheme):
         with kobs.device_span("stage1.transform", blocks.device):
             x = blocks.to(torch.float32).contiguous()
             coeffs = ops.wavelet_forward(x, kind=spec.wavelet, levels=spec.levels)
-            mask = threshold.significant_mask(coeffs, spec.eps, spec.levels)
+            packed = ops.wavelet_pack(coeffs, spec.eps, spec.levels)
         with kobs.device_span("stage1.to_host", blocks.device):
-            kobs.count_copy(coeffs, "cpu", "stage1.to_host")
-            coeffs_np = coeffs.cpu().numpy()
-            kobs.count_copy(mask, "cpu", "stage1.to_host")
-            mask_np = mask.cpu().numpy()
-        c = wavelets.coarse_side(spec.block_size, spec.levels)
+            for t in packed:
+                kobs.count_copy(t, "cpu", "stage1.to_host")
+            counts, bits, coarse, details = (t.cpu().numpy() for t in packed)
+        counts = counts.view(np.uint32)
         return {
-            "mask": mask_np,
-            "coeffs": coeffs_np,
-            "coarse": coeffs_np[..., :c, :c, :c],
+            "counts": counts,
+            "packed": bits,
+            "coarse": coarse,
+            "details": details,
+            # block b's details start at offsets[b]
+            "offsets": np.concatenate([[0], np.cumsum(counts, dtype=np.int64)]),
         }
 
     def serialize(self, s1, lo, hi, spec) -> bytes:
-        mask = s1["mask"][lo:hi]
-        coeffs = s1["coeffs"][lo:hi]
-        coarse = s1["coarse"][lo:hi].astype(np.float32)
-        details = coeffs[mask].astype(np.float32)
+        counts = s1["counts"]
+        lo, hi, _ = slice(lo, hi).indices(len(counts))  # numpy's reading of [lo:hi]
+        details = s1["details"][s1["offsets"][lo]:s1["offsets"][hi]]
         if spec.zero_bits:
             details = shuf.zero_low_bits_np(details, spec.zero_bits)
-        counts = mask.reshape(mask.shape[0], -1).sum(-1).astype(np.uint32)
-        values = np.concatenate([coarse.reshape(-1), details])
+        values = np.concatenate([s1["coarse"][lo:hi].reshape(-1), details])
         return (
-            counts.tobytes()
-            + np.packbits(mask.reshape(-1)).tobytes()
+            counts[lo:hi].tobytes()
+            + s1["packed"][lo:hi].tobytes()
             + shuffle_bytes(values.tobytes(), spec.shuffle, 4)
         )
 

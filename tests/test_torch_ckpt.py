@@ -517,8 +517,9 @@ def test_traced_snapshot_yields_the_span_tree(tmp_path):
         snap.close()
     write = ("dataset.write", [
         ("pipeline.to_device", []),
+        # the forward transform's kernel span, then the selection's
         ("stage1", [("stage1.to_host", []),
-                    ("stage1.transform", [("kernel.*", [])])]),
+                    ("stage1.transform", [("kernel.*", [])] * 2)]),
         ("stage2", [("encode", [])] * 4),
     ])
     # the fields go to stage 1 as they are: no host copy under the snapshot

@@ -265,9 +265,10 @@ def test_traced_compress_absorbs_one_track_per_rank(engine, tmp_path):
         assert enc[0]["args"]["launches"] == {} == enc[0]["args"]["launches_by_side"]
         assert [e["args"]["rank"] for e in mine if e["name"] == "commit"] == [r]
         assert [e["args"]["rank"] for e in mine if e["name"] == "span_read"] == [r]
+        # stage 1's forward transform, then its selection of the kept details
         kernels = [e for e in mine if e["name"].startswith("kernel.")]
         assert [(e["args"]["kernel"], e["args"]["device"]) for e in kernels] == \
-            [("wavelet_forward", "cpu")]
+            [("wavelet_forward", "cpu"), ("wavelet_pack", "cpu")]
     parent = {e["name"] for e in evs if e["pid"] not in (0, 1) and e["ph"] == "X"}
     assert {"host_copy", "span_write", "encode", "exscan", "commit"} <= parent
 
