@@ -13,11 +13,6 @@ subdomain blockifies independently of its neighbours — no halo exchange):
 :func:`scatter`/:func:`gather` move a parent-held field to/from subdomain
 parts (the multiprocessing stand-in for a distributed allocation).
 
-:func:`slab_spans` is the in-situ form of the same partition: ranks that
-each hold a slab along x (the ``slab`` layout, in rank order) own
-contiguous spans of the global block raster, which have to end on chunk
-boundaries for the shared file to be the serial writer's.
-
 :func:`chunk_spans` is the second, 1-D decomposition the shared-file engine
 uses: the serial chunk stream (one chunk per aggregation buffer, in global
 block-raster order) is split into contiguous per-rank spans.  Rank cuts land
@@ -33,7 +28,7 @@ import numpy as np
 from repro_torch.core.blocks import num_blocks
 
 __all__ = ["Subdomain", "LAYOUTS", "dims_for", "decompose", "scatter",
-           "gather", "chunk_spans", "slab_spans"]
+           "gather", "chunk_spans"]
 
 LAYOUTS = ("slab", "pencil", "brick")
 
@@ -162,26 +157,3 @@ def chunk_spans(nchunks: int, ranks: int) -> list[tuple[int, int]]:
     """
     bounds = _splits(nchunks, max(1, int(ranks)))
     return list(zip(bounds, bounds[1:]))
-
-
-def slab_spans(slab_x: list[int], cross: tuple[int, int], block_size: int,
-               blocks_per_chunk: int) -> list[tuple[int, int]]:
-    """Each rank's span ``[lo, hi)`` of the global block raster, where rank
-    ``r`` holds the slab of ``slab_x[r]`` cells along x over the ``cross``
-    section ``(ny, nz)``, the slabs stacked in rank order.  Raises unless
-    every span but the last is a whole number of chunks of
-    ``blocks_per_chunk`` blocks (a rank's first chunk then starts with its
-    first block)."""
-    per_layer = int(np.prod(num_blocks((block_size, *cross), block_size)))
-    spans, lo = [], 0
-    for x in slab_x:
-        if x % block_size:
-            raise ValueError(f"a slab of {x} cells along x is not whole blocks of "
-                             f"{block_size}")
-        spans.append((lo, lo + x // block_size * per_layer))
-        lo = spans[-1][1]
-    short = [r for r, (a, b) in enumerate(spans[:-1]) if (b - a) % blocks_per_chunk]
-    if short:
-        raise ValueError(f"rank(s) {short} hold {[spans[r][1] - spans[r][0] for r in short]} "
-                         f"blocks, not whole chunks of {blocks_per_chunk}")
-    return spans

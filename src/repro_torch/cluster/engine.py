@@ -19,12 +19,9 @@ MPI stand-in:
    (``MPI_File_write_at``), and the parent appends the CZ2 JSON footer and
    patches the footer pointer.
 
-Steps 3 and 4 are the module's :func:`create_shared`, :func:`write_at` and
-:func:`write_footer`, which the in-situ path over a process group
-(:meth:`repro_torch.store.ShardWriter.place_shared`, where every rank holds
-its own slab on its own device) runs as well: each rank's write-at is the
-``cluster.write_at`` span and counts its bytes in
-``cz_shared_write_bytes_total{rank}``.
+Step 4 is :mod:`repro_torch.core.container`'s shared-file form, which the
+in-situ path over a process group (:meth:`repro_torch.store.ShardWriter.
+place_shared`, every rank with its own slab on its own device) runs too.
 
 Because rank cuts align with chunk boundaries and every registered scheme
 transforms blocks independently (the port's kernels give a block the same
@@ -60,7 +57,6 @@ import os
 import shutil
 import tempfile
 import time
-import zlib
 
 import numpy as np
 
@@ -74,8 +70,7 @@ from repro_torch.obs import trace
 
 from .decompose import chunk_spans
 
-__all__ = ["ParallelCompressor", "DATA_START", "create_shared", "write_at",
-           "write_footer"]
+__all__ = ["ParallelCompressor"]
 
 #: env override for the worker start method ("spawn" by default: a CUDA
 #: runtime cannot be re-initialized in a forked child)
@@ -89,14 +84,6 @@ _PHASE_SECONDS = obs.histogram(
 _COMPRESSIONS = obs.counter("cz_cluster_compressions_total",
                             "Parallel compress() calls by rank count.",
                             labelnames=("ranks",))
-
-_SHARED_BYTES = obs.counter("cz_shared_write_bytes_total",
-                            "Bytes each rank wrote into shared per-quantity files.",
-                            labelnames=("rank",))
-
-#: where a shared file's chunk data starts: after the magic and the footer
-#: pointer
-DATA_START = len(container.MAGIC) + container._FOOTER_PTR.size
 
 #: the pipeline stages a rank runs, reported on its ``encode`` span
 _RANK_STAGES = ("stage1", "serialize", "stage2_encode")
@@ -135,21 +122,17 @@ def _delta(after: dict, before: dict) -> dict:
     return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
 
 
-def _encode_rank(task) -> tuple[list[int], list[int], list[int], list]:
+def _encode_rank(task) -> container.ChunkTable:
     """Worker: load one rank's block span (and delete its file), then encode
     it into a private part file, with stage 1 on the task's torch device.
 
-    Returns (chunk_sizes, chunk_nblocks, chunk_crc32, chunk_records) — the
-    per-rank metadata the parent gathers before the Exscan.  The rank's
-    ``encode`` span carries its seconds per pipeline stage (``stage_s``) and
-    the kernel launches its wrappers counted meanwhile (``launches``,
-    ``launches_by_side``).
+    Returns the part's chunk table, which the parent gathers before the
+    Exscan.  The rank's ``encode`` span carries its seconds per pipeline
+    stage (``stage_s``) and the kernel launches its wrappers counted
+    meanwhile (``launches``, ``launches_by_side``).
     """
     spec_json, device, span_path, part_path, rank, trace_path = task
-    sizes: list[int] = []
-    nblks: list[int] = []
-    crcs: list[int] = []
-    recs: list = []
+    table = container.ChunkTable()
     with _rank_tracing(rank, trace_path):
         with trace.span("span_read", rank=rank):
             blocks_np = np.load(span_path)
@@ -160,11 +143,9 @@ def _encode_rank(task) -> tuple[list[int], list[int], list[int], list]:
         with open(part_path, "wb") as f:
             if blocks_np.shape[0]:
                 pipe = Pipeline(CompressionSpec.from_json(spec_json), device=device)
-                for chunk, nblk in pipe.iter_chunks(blocks_np, records=recs):
+                for chunk, nblk in pipe.iter_chunks(blocks_np, records=table.records):
                     f.write(chunk)
-                    sizes.append(len(chunk))
-                    nblks.append(nblk)
-                    crcs.append(zlib.crc32(chunk) & 0xFFFFFFFF)
+                    table.add(chunk, nblk)
             f.flush()
             os.fsync(f.fileno())
         t1 = time.perf_counter_ns()
@@ -173,51 +154,7 @@ def _encode_rank(task) -> tuple[list[int], list[int], list[int], list]:
                      stage_s={k: STAGE_SECONDS[k] - before[k] for k in _RANK_STAGES},
                      launches=_delta(calls1, calls0),
                      launches_by_side=_delta(sides1, sides0))
-    return sizes, nblks, crcs, recs
-
-
-def create_shared(path: str) -> None:
-    """Start a shared file (truncating any earlier one): the magic and a
-    zero footer pointer, which :func:`write_footer` patches."""
-    with open(path, "wb") as f:
-        f.write(container.MAGIC)
-        f.write(container._FOOTER_PTR.pack(0))
-
-
-def write_at(path: str, offset: int, bufs, rank: int) -> int:
-    """``MPI_File_write_at``: ``bufs`` (an iterable of bytes) one after
-    another into the shared file at byte ``offset``, through a descriptor
-    of this rank's own; returns the bytes written.  The ``cluster.write_at``
-    span; the bytes count in ``cz_shared_write_bytes_total{rank}``."""
-    t0 = time.perf_counter_ns()
-    n = 0
-    fd = os.open(path, os.O_WRONLY)
-    try:
-        for buf in bufs:
-            view = memoryview(buf)
-            while view:
-                done = os.pwrite(fd, view, offset + n)
-                n += done
-                view = view[done:]
-    finally:
-        os.close(fd)
-    trace.record("cluster.write_at", t0, time.perf_counter_ns(), rank=int(rank),
-                 offset=int(offset), bytes=n)
-    _SHARED_BYTES.inc(n, rank=str(rank))
-    return n
-
-
-def write_footer(path: str, header: dict, tables, fsync: bool = False) -> int:
-    """Close a shared file whose chunk data every rank has written: the
-    footer from the ranks' chunk tables ``(sizes, nblocks, crc32s,
-    records)`` in rank order, which concatenated are the serial writer's
-    table, at the end of the data; returns the file's byte count."""
-    sizes = [s for t in tables for s in t[0]]
-    with open(path, "r+b") as f:
-        return container.commit_footer(
-            f, header, sizes, [n for t in tables for n in t[1]],
-            [c for t in tables for c in t[2]], DATA_START + sum(sizes),
-            fsync=fsync, records=[r for t in tables for r in t[3]])
+    return table
 
 
 def _write_at(task) -> None:
@@ -227,7 +164,8 @@ def _write_at(task) -> None:
     with _rank_tracing(rank, trace_path), \
             trace.span("commit", rank=rank, offset=int(offset)):
         with open(part_path, "rb") as src:
-            write_at(path, offset, iter(lambda: src.read(1 << 20), b""), rank)
+            container.write_at(path, offset, iter(lambda: src.read(1 << 20), b""),
+                               rank)
         os.unlink(part_path)
 
 
@@ -371,8 +309,7 @@ class ParallelCompressor:
             # -- phase 2: Exscan over per-rank totals -> shared-file offsets
             t0 = time.perf_counter_ns()
             with trace.span("exscan", ranks=nranks):
-                totals = np.asarray(
-                    [sum(sizes) for sizes, *_ in enc], np.int64)
+                totals = np.asarray([sum(t.sizes) for t in enc], np.int64)
                 offsets = exclusive_offsets_np(totals)
             _PHASE_SECONDS.observe((time.perf_counter_ns() - t0) / 1e9,
                                    phase="exscan")
@@ -382,14 +319,14 @@ class ParallelCompressor:
             # == the serial writer's chunk table, through same layout code)
             t0 = time.perf_counter_ns()
             with trace.span("commit", ranks=nranks):
-                create_shared(path)
+                container.create_shared(path)
                 shared_created = True
                 self._get_pool().map(
                     _write_at,
-                    [(path, int(DATA_START + off), part, r, wr)
+                    [(path, int(container.DATA_START + off), part, r, wr)
                      for r, (off, part, (_enc, wr))
                      in enumerate(zip(offsets, parts, rank_traces))])
-                nbytes = write_footer(path, header, enc, fsync=fsync)
+                nbytes = container.write_footer(path, header, enc, fsync=fsync)
             _PHASE_SECONDS.observe((time.perf_counter_ns() - t0) / 1e9,
                                    phase="commit")
             self._absorb_rank_traces(rank_traces)

@@ -9,6 +9,10 @@
 * **CZ1** (legacy, read-only) — ``b"CZ1\\0"`` magic with the JSON header up
   front.
 
+Ranks write one CZ2 file together, the paper's shared per-quantity file:
+:func:`create_shared`, each rank's chunks at its Exscan offset
+(:func:`write_at`), :func:`write_footer` of the ranks' chunk tables.
+
 All container I/O goes through the :class:`repro_torch.store.backends.Store`
 byte-store protocol: a plain ``path`` resolves to a :class:`FileStore` on
 the file's directory, and every reader and writer also takes ``store=``,
@@ -45,6 +49,7 @@ from . import blocks as blk
 from .pipeline import CompressedField, CompressionSpec, Pipeline
 
 __all__ = ["write_field", "write_compressed", "write_stream", "commit_footer",
+           "ChunkTable", "DATA_START", "create_shared", "write_at", "write_footer",
            "build_field_header", "iter_compressed", "read_field", "describe",
            "ChunkPrefetcher", "FieldReader", "MAGIC", "MAGIC_V1"]
 
@@ -64,10 +69,16 @@ _DECODE_SECONDS = obs.histogram("cz_reader_decode_seconds",
 _PREFETCHED = obs.counter("cz_reader_prefetch_chunks_total",
                           "Prefetcher chunk outcomes by result.",
                           labelnames=("result",))
+_SHARED_BYTES = obs.counter("cz_shared_write_bytes_total",
+                            "Bytes each rank wrote into shared per-quantity files.",
+                            labelnames=("rank",))
 
 MAGIC = b"CZ2\0"
 MAGIC_V1 = b"CZ1\0"
 _FOOTER_PTR = struct.Struct("<Q")
+#: where a CZ2 container's chunk data starts: after the magic and the footer
+#: pointer
+DATA_START = len(MAGIC) + _FOOTER_PTR.size
 
 
 def _source(path, store: stores.Store | None) -> tuple[stores.Store, str]:
@@ -79,27 +90,49 @@ def _source(path, store: stores.Store | None) -> tuple[stores.Store, str]:
     return stores.FileStore(head), tail
 
 
-def commit_footer(f, base_header: dict, sizes: list[int], nblks: list[int],
-                  crcs: list[int], footer_off: int, fsync: bool = False,
-                  records: list | None = None) -> int:
-    """Append the JSON footer at ``footer_off`` and patch the magic's footer
-    pointer; returns the container's total byte count.  Header key order
-    decides byte identity with the reference's containers.
+class ChunkTable:
+    """A CZ2 footer's chunk table, filled as the chunks are written: each
+    chunk's size, block count and CRC-32 (:meth:`add`), and the per-chunk
+    :meth:`Scheme.chunk_record` collection ``records``, which
+    ``Pipeline.iter_chunks(records=table.records)`` fills as it drains."""
 
-    ``records`` is the per-chunk :meth:`Scheme.chunk_record` collection; it
-    becomes the footer's ``chunk_schemes`` table only when some chunk
-    recorded something, so single-scheme containers keep their bytes.  A
-    ``chunk_schemes`` already in ``base_header`` (a re-written
+    def __init__(self, records: list | None = None):
+        self.sizes, self.nblocks, self.crc32 = [], [], []
+        self.records = [] if records is None else records
+
+    def add(self, chunk: bytes, nblk: int) -> None:
+        self.sizes.append(len(chunk))
+        self.nblocks.append(nblk)
+        self.crc32.append(zlib.crc32(chunk) & 0xFFFFFFFF)
+
+    def extend(self, other: ChunkTable) -> None:
+        """Append ``other``'s chunks after this table's."""
+        self.sizes += other.sizes
+        self.nblocks += other.nblocks
+        self.crc32 += other.crc32
+        self.records += other.records
+
+
+def commit_footer(f, base_header: dict, table: ChunkTable, footer_off: int,
+                  fsync: bool = False) -> int:
+    """Append the JSON footer of the chunk ``table`` at ``footer_off`` and
+    patch the magic's footer pointer; returns the container's total byte
+    count.  Header key order decides byte identity with the reference's
+    containers.
+
+    The table's ``records`` become the footer's ``chunk_schemes`` only when
+    some chunk recorded something, so single-scheme containers keep their
+    bytes.  A ``chunk_schemes`` already in ``base_header`` (a re-written
     :class:`CompressedField`) goes back at the same position."""
     header = dict(base_header)
     recs = header.pop("chunk_schemes", None)
-    if records is not None and any(r is not None for r in records):
-        recs = records
+    if any(r is not None for r in table.records):
+        recs = table.records
     header.update({
-        "nblocks": int(sum(nblks)),
-        "chunk_nblocks": nblks,
-        "chunk_sizes": sizes,
-        "chunk_crc32": crcs,
+        "nblocks": int(sum(table.nblocks)),
+        "chunk_nblocks": table.nblocks,
+        "chunk_sizes": table.sizes,
+        "chunk_crc32": table.crc32,
     })
     if recs is not None:
         header["chunk_schemes"] = recs
@@ -129,20 +162,62 @@ def write_stream(path: str, chunk_iter: Iterable[tuple[bytes, int]],
     commit one whole-object put.  ``records`` is the list the chunk iterator
     fills as it drains (``Pipeline.iter_chunks(records=...)``), read once
     the loop is done."""
-    sizes: list[int] = []
-    nblks: list[int] = []
-    crcs: list[int] = []
+    table = ChunkTable(records)
     sink = open(path, "wb") if store is None else store.open_write(path)
     with sink as f:
         f.write(MAGIC)
         f.write(_FOOTER_PTR.pack(0))  # patched once the footer offset is known
         for chunk, nblk in chunk_iter:
             f.write(chunk)
-            sizes.append(len(chunk))
-            nblks.append(nblk)
-            crcs.append(zlib.crc32(chunk) & 0xFFFFFFFF)
-        return commit_footer(f, base_header, sizes, nblks, crcs, f.tell(),
-                             fsync=fsync, records=records)
+            table.add(chunk, nblk)
+        return commit_footer(f, base_header, table, f.tell(), fsync=fsync)
+
+
+# -- one file shared by ranks (``MPI_File_write_at`` at Exscan offsets) ----
+
+def create_shared(path: str) -> None:
+    """Start a shared file (truncating any earlier one): the magic and a
+    zero footer pointer, which :func:`write_footer` patches."""
+    with open(path, "wb") as f:
+        f.write(MAGIC)
+        f.write(_FOOTER_PTR.pack(0))
+
+
+def write_at(path: str, offset: int, bufs, rank: int) -> int:
+    """``MPI_File_write_at``: ``bufs`` (an iterable of bytes) one after
+    another into the shared file at byte ``offset``, through a descriptor
+    of this rank's own; returns the bytes written.  The ``cluster.write_at``
+    span; the bytes count in ``cz_shared_write_bytes_total{rank}``."""
+    t0 = time.perf_counter_ns()
+    n = 0
+    fd = os.open(path, os.O_WRONLY)
+    try:
+        for buf in bufs:
+            view = memoryview(buf)
+            while view:
+                done = os.pwrite(fd, view, offset + n)
+                n += done
+                view = view[done:]
+    finally:
+        os.close(fd)
+    trace.record("cluster.write_at", t0, time.perf_counter_ns(), rank=int(rank),
+                 offset=int(offset), bytes=n)
+    _SHARED_BYTES.inc(n, rank=str(rank))
+    return n
+
+
+def write_footer(path: str, header: dict, tables: Iterable[ChunkTable],
+                 fsync: bool = False) -> int:
+    """Close a shared file whose chunk data every rank has written: the
+    footer of the ranks' chunk ``tables`` in rank order, which one after
+    another are the serial writer's table, at the end of the data; returns
+    the file's byte count."""
+    table = ChunkTable()
+    for t in tables:
+        table.extend(t)
+    with open(path, "r+b") as f:
+        return commit_footer(f, header, table, DATA_START + sum(table.sizes),
+                             fsync=fsync)
 
 
 def build_field_header(pipe: Pipeline, source, extra_header: dict | None = None):

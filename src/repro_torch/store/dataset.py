@@ -67,6 +67,11 @@ from .writer import ShardWriter, _as_field
 
 __all__ = ["CZDataset"]
 
+
+#: the store key of quantity ``q``'s member at timestep ``t``
+_MEMBER = "{q}/t{t:06d}.cz"
+
+
 def _member_stats(field: np.ndarray | torch.Tensor, dec: np.ndarray) -> dict:
     """Per-member quality record (PSNR is None when the member is lossless —
     JSON has no Infinity).  A tensor field is copied to the host for it,
@@ -287,59 +292,21 @@ class CZDataset:
             # assumption; rank-parallel writers go through RankWriter.)
             self._m = read_manifest(self.store)
             t = int(self._m["next_t"])
-            staged = []
+            written = []
             for q, field in fields.items():
                 if not QUANTITY_RE.match(q):
                     raise ValueError(f"invalid quantity name {q!r}")
                 field = _as_field(field)
-                ent = self._m["quantities"].get(q)
-                if ent is not None and tuple(ent["shape"]) != tuple(field.shape):
-                    raise ValueError(
-                        f"quantity {q!r} has shape {tuple(ent['shape'])}, "
-                        f"append got {tuple(field.shape)}")
+                self._check(q, shape=field.shape)
                 member_spec = self._writer.spec_for(field)
-                if ent is not None and \
-                        str(ent["dtype"]) != str(member_spec.np_dtype):
-                    raise ValueError(
-                        f"quantity {q!r} is {ent['dtype']}, append got "
-                        f"{member_spec.np_dtype} — the quantity-level dtype "
-                        "tag is fixed at first append")
-                rel = f"{q}/t{t:06d}.cz"
+                self._check(q, spec=member_spec)
                 with trace.span("dataset.write", quantity=q, t=t):
                     nbytes = self._writer.write(
-                        rel, field, spec=member_spec,
+                        _MEMBER.format(q=q, t=t), field, spec=member_spec,
                         extra_header={"quantity": q, "t": t, "time": time},
                         store=self.store)
-                rec = {"t": t, "time": time, "file": rel, "bytes": int(nbytes),
-                       "raw_bytes": int(field.nbytes)}
-                if member_spec.scheme == "auto":
-                    # surface the chunk-scheme mix in the manifest (and so in
-                    # /v1/manifest + inspect --stats) without a decode pass
-                    mix = container.describe(
-                        rel, verify=False, store=self.store).get("schemes")
-                    if mix:
-                        rec["schemes"] = mix
-                if self._stats:
-                    with trace.span("dataset.stats_read", quantity=q, t=t):
-                        dec = container.read_field(rel, device=self.device,
-                                                   store=self.store)
-                    with trace.span("dataset.member_stats", quantity=q, t=t):
-                        rec.update(_member_stats(field, dec))
-                staged.append((q, field, member_spec, rec))
-            # all members stored -> patch the manifest in one atomic commit
-            for q, field, member_spec, rec in staged:
-                ent = self._m["quantities"].get(q)
-                if ent is None:
-                    ent = self._m["quantities"][q] = {
-                        "shape": list(field.shape),
-                        "dtype": str(member_spec.np_dtype),
-                        "timesteps": [],
-                    }
-                ent["timesteps"].append(rec)
-            self._m["next_t"] = t + 1
-            self._m["version"] = int(self._m["version"]) + 1
-            with trace.span("dataset.commit", t=t):
-                write_manifest(self.store, self._m)
+                written.append((q, member_spec, field.shape, nbytes, field.nbytes, field))
+            self._commit(t, time, written)
             return t
 
     def _append_shared(self, fields: dict, time: float | None) -> int:
@@ -355,7 +322,6 @@ class CZDataset:
             t = int(self._m["next_t"])
             parts, specs = [], []
             for q, field in fields.items():
-                rel = f"{q}/t{t:06d}.cz"
                 with trace.span("dataset.write", quantity=q, t=t):
                     try:
                         if not QUANTITY_RE.match(q):
@@ -368,8 +334,8 @@ class CZDataset:
                     except Exception as e:  # noqa: BLE001 - raised on every rank
                         part = e
                     try:
-                        parts.append(self._writer.place_shared(rel, part, self._group,
-                                                               store=self.store))
+                        parts.append(self._writer.place_shared(
+                            _MEMBER.format(q=q, t=t), part, self._group, store=self.store))
                     except BaseException:
                         if me == 0:  # the members placed before this one
                             for p in parts:
@@ -378,34 +344,65 @@ class CZDataset:
                         raise
 
             def commit(nbytes: list[int], headers: list[dict]) -> None:
-                for (q, spec), n, h in zip(zip(fields, specs), nbytes, headers):
-                    ent = self._m["quantities"].get(q)
-                    if ent is not None and tuple(ent["shape"]) != tuple(h["field_shape"]):
-                        raise ValueError(f"quantity {q!r} has shape {tuple(ent['shape'])}, "
-                                         f"the ranks' slabs make {tuple(h['field_shape'])}")
-                    if ent is not None and str(ent["dtype"]) != str(spec.np_dtype):
-                        raise ValueError(f"quantity {q!r} is {ent['dtype']}, append got "
-                                         f"{spec.np_dtype}")
-                for (q, spec), n, h in zip(zip(fields, specs), nbytes, headers):
-                    ent = self._m["quantities"].setdefault(q, {
-                        "shape": list(h["field_shape"]), "dtype": str(spec.np_dtype),
-                        "timesteps": []})
-                    rec = {"t": t, "time": time, "file": f"{q}/t{t:06d}.cz",
-                           "bytes": int(n), "raw_bytes": int(h["raw_bytes"])}
-                    if spec.scheme == "auto":
-                        mix = container.describe(rec["file"], store=self.store).get("schemes")
-                        if mix:
-                            rec["schemes"] = mix
-                    ent["timesteps"].append(rec)
-                self._m["next_t"] = t + 1
-                self._m["version"] = int(self._m["version"]) + 1
-                with trace.span("dataset.commit", t=t):
-                    write_manifest(self.store, self._m)
+                written = [(q, spec, h["field_shape"], n, h["raw_bytes"], None)
+                           for q, spec, n, h in zip(fields, specs, nbytes, headers)]
+                for q, spec, shape, *_ in written:
+                    self._check(q, shape, spec)
+                self._commit(t, time, written)
 
-            self._writer.commit_shared(parts, self._group, fsync=True, then=commit)
+            self._writer.commit_shared(parts, self._group, then=commit)
             if me != 0:
                 self._m = read_manifest(self.store)
             return t
+
+    def _check(self, q: str, shape=None, spec: CompressionSpec | None = None) -> None:
+        """Refuse quantity ``q`` of another ``shape`` or another dtype (its
+        member ``spec``'s) than its manifest entry's: both are fixed at the
+        quantity's first append."""
+        ent = self._m["quantities"].get(q)
+        if ent is None:
+            return
+        if shape is not None and tuple(ent["shape"]) != tuple(shape):
+            raise ValueError(
+                f"quantity {q!r} has shape {tuple(ent['shape'])}, "
+                f"append got {tuple(shape)}")
+        if spec is not None and str(ent["dtype"]) != str(spec.np_dtype):
+            raise ValueError(
+                f"quantity {q!r} is {ent['dtype']}, append got "
+                f"{spec.np_dtype} — the quantity-level dtype "
+                "tag is fixed at first append")
+
+    def _commit(self, t: int, time: float | None, written: list[tuple]) -> None:
+        """Commit timestep ``t`` once its members are stored: ``written``
+        holds each member's ``(quantity, spec, shape, bytes, raw_bytes,
+        field)`` in append order.  Each member's record gets the chunk-scheme
+        mix of an ``auto`` member and, with ``stats``, its quality against
+        ``field``; then the manifest is replaced in one atomic commit."""
+        recs = []
+        for q, spec, _shape, nbytes, raw_bytes, field in written:
+            rel = _MEMBER.format(q=q, t=t)
+            rec = {"t": t, "time": time, "file": rel, "bytes": int(nbytes),
+                   "raw_bytes": int(raw_bytes)}
+            if spec.scheme == "auto":
+                # surface the chunk-scheme mix in the manifest (and so in
+                # /v1/manifest + inspect --stats) without a decode pass
+                mix = container.describe(rel, verify=False, store=self.store).get("schemes")
+                if mix:
+                    rec["schemes"] = mix
+            if self._stats:
+                with trace.span("dataset.stats_read", quantity=q, t=t):
+                    dec = container.read_field(rel, device=self.device, store=self.store)
+                with trace.span("dataset.member_stats", quantity=q, t=t):
+                    rec.update(_member_stats(field, dec))
+            recs.append(rec)
+        for (q, spec, shape, *_), rec in zip(written, recs):
+            ent = self._m["quantities"].setdefault(q, {
+                "shape": list(shape), "dtype": str(spec.np_dtype), "timesteps": []})
+            ent["timesteps"].append(rec)
+        self._m["next_t"] = t + 1
+        self._m["version"] = int(self._m["version"]) + 1
+        with trace.span("dataset.commit", t=t):
+            write_manifest(self.store, self._m)
 
     # -- random access -----------------------------------------------------
 

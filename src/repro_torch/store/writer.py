@@ -41,6 +41,7 @@ import torch
 
 from repro_torch import DEFAULT_DEVICE
 from repro_torch.core import container
+from repro_torch.core.blocks import num_blocks
 from repro_torch.core.pipeline import DTYPES, CompressionSpec, Pipeline
 from repro_torch.core.schemes import check_device, torch_device
 from repro_torch.obs import trace
@@ -64,14 +65,12 @@ class DtypeCoercionWarning(UserWarning):
 class SharedPart:
     """One rank's share of a shared member once its bytes are placed: the
     member's local ``path``, this rank's ``header`` (its slab's shape and
-    raw bytes), its chunk ``table`` ``(sizes, nblocks, crc32s, records)``,
-    the Exscan's table of every rank's ``rows`` and this rank's byte
-    ``offset`` in the chunk data; ``error``, what its write-at raised."""
+    raw bytes), its chunk ``table`` and the Exscan's table of every rank's
+    ``rows``; ``error``, what its write-at raised."""
     path: str
     header: dict
-    table: tuple
+    table: container.ChunkTable
     rows: torch.Tensor
-    offset: int
     error: BaseException | None = None
 
 
@@ -94,13 +93,33 @@ def _shared_path(path: str, store, create: bool) -> str:
     return path
 
 
+def _slab_spans(slab_x: list[int], cross: tuple[int, int], block_size: int,
+                blocks_per_chunk: int) -> list[tuple[int, int]]:
+    """Each rank's span ``[lo, hi)`` of the global block raster, where rank
+    ``r`` holds the slab of ``slab_x[r]`` cells along x over the ``cross``
+    section ``(ny, nz)``, the slabs stacked in rank order.  Raises unless
+    every span but the last is a whole number of chunks of
+    ``blocks_per_chunk`` blocks (a rank's first chunk then starts with its
+    first block)."""
+    per_layer = int(np.prod(num_blocks((block_size, *cross), block_size)))
+    spans, lo = [], 0
+    for x in slab_x:
+        if x % block_size:
+            raise ValueError(f"a slab of {x} cells along x is not whole blocks of "
+                             f"{block_size}")
+        spans.append((lo, lo + x // block_size * per_layer))
+        lo = spans[-1][1]
+    short = [r for r, (a, b) in enumerate(spans[:-1]) if (b - a) % blocks_per_chunk]
+    if short:
+        raise ValueError(f"rank(s) {short} hold {[spans[r][1] - spans[r][0] for r in short]} "
+                         f"blocks, not whole chunks of {blocks_per_chunk}")
+    return spans
+
+
 def _rows_problem(rows: torch.Tensor, block_size: int) -> str | None:
     """What the ranks' Exscan rows disagree on, if anything: a rank that
     failed, another member, another slab cross-section, or a slab (not the
-    last) that does not end on a chunk boundary
-    (:func:`~repro_torch.cluster.decompose.slab_spans`)."""
-    from repro_torch.cluster.decompose import slab_spans
-
+    last) that does not end on a chunk boundary (:func:`_slab_spans`)."""
     r = {k: rows[:, i].tolist() for i, k in enumerate(_ROW)}
     failed = [i for i, ok in enumerate(r["ok"]) if not ok]
     if failed:
@@ -110,7 +129,7 @@ def _rows_problem(rows: torch.Tensor, block_size: int) -> str | None:
     if len({(y, z) for y, z in zip(r["ny"], r["nz"])}) > 1:
         return f"the ranks' slabs differ across axis 0: {list(zip(r['ny'], r['nz']))}"
     try:
-        slab_spans(r["nx"], (r["ny"][0], r["nz"][0]), block_size, r["per_chunk"][0])
+        _slab_spans(r["nx"], (r["ny"][0], r["nz"][0]), block_size, r["per_chunk"][0])
     except ValueError as e:
         return str(e)
     return None
@@ -185,25 +204,24 @@ class ShardWriter:
     # -- a member shared by the ranks of a process group --------------------
 
     def encode_part(self, slab, spec: CompressionSpec | None = None,
-                    extra_header: dict | None = None) -> tuple[dict, list, tuple, int]:
+                    extra_header: dict | None = None
+                    ) -> tuple[dict, list, container.ChunkTable, int]:
         """This rank's share of a shared member, in memory: its header (of
-        its own slab), its chunks, their table ``(sizes, nblocks, crc32s,
-        records)`` and the blocks a chunk holds.  Stage 1 runs on the writer's device, stage 2
-        on its pool, as :meth:`write` runs them."""
+        its own slab), its chunks, their table and the blocks a chunk holds.
+        Stage 1 runs on the writer's device, stage 2 on its pool, as
+        :meth:`write` runs them."""
         field = _as_field(slab)
         if field.ndim != 3:
             raise ValueError(f"expected a 3D slab, got shape {tuple(field.shape)}")
         pipe = Pipeline(spec or self.spec_for(field), workers=self.workers,
                         device=self.device)
         header, data = container.build_field_header(pipe, field, extra_header)
-        bufs, sizes, nblks, crcs, recs = [], [], [], [], []
+        bufs, table = [], container.ChunkTable()
         for chunk, n in pipe.iter_chunks(data, workers=self.workers,
-                                         executor=self._pool, records=recs):
+                                         executor=self._pool, records=table.records):
             bufs.append(chunk)
-            sizes.append(len(chunk))
-            nblks.append(n)
-            crcs.append(zlib.crc32(chunk) & 0xFFFFFFFF)
-        return header, bufs, (sizes, nblks, crcs, recs), pipe.blocks_per_chunk
+            table.add(chunk, n)
+        return header, bufs, table, pipe.blocks_per_chunk
 
     def place_shared(self, path: str, part, group, store=None) -> SharedPart:
         """Place this rank's ``part`` (what :meth:`encode_part` returned, or
@@ -216,7 +234,6 @@ class ShardWriter:
         failed to encode, or the ranks disagree on the member or the slab
         layout, every rank raises here (rank 0 removes the file); a failed
         write-at is held in the part and raised by :meth:`commit_shared`."""
-        from repro_torch.cluster import engine
         import torch.distributed as dist
 
         from repro_torch.dist.offsets import exscan_rows
@@ -229,10 +246,10 @@ class ShardWriter:
             if ok:
                 header, bufs, table, per_chunk = part
                 local = _shared_path(path, store, create=me == 0)
-                row = [sum(table[0]), 1, row[2], *header["field_shape"],
-                       sum(table[1]), per_chunk]
+                row = [sum(table.sizes), 1, row[2], *header["field_shape"],
+                       sum(table.nblocks), per_chunk]
                 if me == 0:
-                    engine.create_shared(local)
+                    container.create_shared(local)
         except Exception as e:  # noqa: BLE001 - every rank learns of it below
             ok, part = False, e
             row[:2] = [-1, 0]
@@ -247,14 +264,13 @@ class ShardWriter:
                 raise part
             raise RuntimeError(f"shared member {path!r}: {problem}")
         try:
-            engine.write_at(local, engine.DATA_START + offset, bufs, me)
+            container.write_at(local, container.DATA_START + offset, bufs, me)
             error = None
         except Exception as e:  # noqa: BLE001 - raised on every rank at commit
             error = e
-        return SharedPart(local, header, table, rows, offset, error)
+        return SharedPart(local, header, table, rows, error)
 
-    def commit_shared(self, parts: list[SharedPart], group, fsync: bool = True,
-                      then=None) -> list[int]:
+    def commit_shared(self, parts: list[SharedPart], group, then) -> list[int]:
         """Close the shared members ``parts`` (one per member, in the same
         order on every rank); returns each member's byte count, on every
         rank.  Rank 0 gathers every rank's chunk tables, which says that
@@ -264,7 +280,6 @@ class ShardWriter:
         before it tells the ranks the outcome: the ``cluster.commit`` span,
         on rank 0.  Any rank's failure, a write-at's or rank 0's, raises on
         every rank, and rank 0 removes the members."""
-        from repro_torch.cluster import engine
         import torch.distributed as dist
 
         from repro_torch.dist.collective import broadcast_object, gather_objects
@@ -284,11 +299,10 @@ class ShardWriter:
                         raise RuntimeError(f"rank {bad[0][0]} failed its write-at: "
                                            f"{bad[0][1]}")
                     headers = [_global_header(p) for p in parts]
-                    nbytes = [engine.write_footer(p.path, h, [g["tables"][i] for g in got],
-                                                  fsync=fsync)
+                    nbytes = [container.write_footer(p.path, h, [g["tables"][i] for g in got],
+                                                     fsync=True)
                               for i, (p, h) in enumerate(zip(parts, headers))]
-                    if then is not None:
-                        then(nbytes, headers)
+                    then(nbytes, headers)
                     status = {"nbytes": nbytes}
                 except BaseException as e:
                     status = {"error": f"rank 0: {type(e).__name__}: {e}"}

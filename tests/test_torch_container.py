@@ -68,6 +68,42 @@ def test_both_packages_write_the_same_bytes(tmp_path, scheme):
     assert (tmp_path / "t.cz").read_bytes() == (tmp_path / "r.cz").read_bytes()
 
 
+@pytest.mark.parametrize("scheme", ["raw", "wavelet"])
+def test_shared_file_of_two_parts_is_the_serial_file(tmp_path, scheme):
+    """Two chunk-aligned parts of a field, each written at its Exscan offset
+    into one shared file (``create_shared``, ``write_at``, ``write_footer``),
+    make ``write_field``'s file and the JAX package's, byte for byte."""
+    from repro_torch.core.pipeline import Pipeline
+    from repro_torch.dist.offsets import exclusive_offsets_np
+
+    f = _field(seed=3)
+    kw = dict(scheme=scheme, block_size=16, buffer_bytes=1 << 15)  # 4 chunks of 2 blocks
+    pipe = Pipeline(CompressionSpec(**kw), device="cpu")
+    header, data = tcont.build_field_header(pipe, f)
+    cut = pipe.blocks_per_chunk * 3   # the parts hold 3 chunks and 1
+    parts = []
+    for blocks in (data[:cut], data[cut:]):
+        table, bufs = tcont.ChunkTable(), []
+        for chunk, nblk in pipe.iter_chunks(blocks, records=table.records):
+            bufs.append(chunk)
+            table.add(chunk, nblk)
+        parts.append((bufs, table))
+    offsets = exclusive_offsets_np([sum(t.sizes) for _b, t in parts])
+    shared = str(tmp_path / "shared.cz")
+    tcont.create_shared(shared)
+    for rank in (1, 0):   # each part at its own offset, in any order
+        bufs, table = parts[rank]
+        assert tcont.write_at(shared, tcont.DATA_START + int(offsets[rank]), bufs,
+                              rank) == sum(table.sizes)
+    nbytes = tcont.write_footer(shared, header, [t for _b, t in parts])
+    tcont.write_field(str(tmp_path / "serial.cz"), f, CompressionSpec(**kw), device="cpu")
+    rcont.write_field(str(tmp_path / "ref.cz"), f, RSpec(**kw))
+    got = (tmp_path / "shared.cz").read_bytes()
+    assert nbytes == len(got)
+    assert got == (tmp_path / "serial.cz").read_bytes()
+    assert got == (tmp_path / "ref.cz").read_bytes()
+
+
 def test_block_batch_round_trip_and_iter_compressed(tmp_path):
     blocks = _field().reshape(-1, 8, 8, 8)
     path = str(tmp_path / "b.cz")

@@ -97,6 +97,44 @@ def test_no_jax_or_repro_import(path):
         assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {name}"
 
 
+def _all_imports(path: pathlib.Path) -> list[str]:
+    """Every module ``path`` may import, at module level or inside a
+    function, relative imports resolved against its package; a ``from M
+    import n`` counts as both ``M`` and ``M.n`` (``n`` may be a submodule)."""
+    package = list(path.relative_to(ROOT / "src").with_suffix("").parts[:-1])
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = package[:len(package) - node.level + 1] if node.level else []
+            module = ".".join(base + ([node.module] if node.module else []))
+            names += [module] + [f"{module}.{a.name}" for a in node.names]
+    return names
+
+
+def _of_cluster(names: list[str]) -> list[str]:
+    return [n for n in names if n == "repro_torch.cluster" or n.startswith("repro_torch.cluster.")]
+
+
+def test_the_import_walk_resolves_relative_and_local_imports():
+    engine = _all_imports(PORT / "cluster" / "engine.py")
+    assert "repro_torch.cluster.decompose.chunk_spans" in engine      # from .decompose import
+    assert "repro_torch.kernels._build" in engine                     # inside a method
+    assert "repro_torch.cluster._env.worker_env" in engine            # relative, inside a method
+    assert "repro_torch.core.shuffle" in _all_imports(PORT / "core" / "schemes" / "wavelet.py")
+
+
+@pytest.mark.parametrize(
+    "path", sorted((PORT / "core").rglob("*.py")) + sorted((PORT / "store").rglob("*.py")),
+    ids=lambda p: str(p.relative_to(PORT)))
+def test_core_and_store_import_nothing_of_cluster(path):
+    """The in-situ write's layers point one way: the container (``core``)
+    <- the member writer and the dataset (``store``) <- the rank tier
+    (``cluster``)."""
+    assert not _of_cluster(_all_imports(path)), f"{path.name} imports the cluster tier"
+
+
 def test_cuda_without_a_gpu_raises(monkeypatch):
     from repro_torch.core.pipeline import CompressionSpec, Pipeline
 

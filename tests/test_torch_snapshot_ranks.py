@@ -226,7 +226,6 @@ def _failing_rank(rank, out):
     import torch.distributed as dist
 
     from repro_torch.ckpt import FieldSnapshotter
-    from repro_torch.cluster import engine
 
     fields = _global_field()
     snap = FieldSnapshotter(os.path.join(out, "ds"), every=1, spec=CompressionSpec(**SPEC),
@@ -239,17 +238,17 @@ def _failing_rank(rank, out):
         snap.maybe_snapshot({"p": slab, "rho": bad}, 0)
     except Exception as e:  # noqa: BLE001
         said["shape"] = f"{type(e).__name__}: {e}"
-    real = engine.write_at
+    real = container.write_at
     if rank == 3:
         def broken(*a, **k):
             raise OSError("disk full")
-        engine.write_at = broken
+        container.write_at = broken
     try:
         snap.maybe_snapshot({"p": slab}, 0)
     except Exception as e:  # noqa: BLE001
         said["write_at"] = f"{type(e).__name__}: {e}"
     said["seconds"] = time.monotonic() - t0
-    engine.write_at = real
+    container.write_at = real
     said["t"] = snap.maybe_snapshot({"p": slab}, 5)
     snap.close()
     return said
